@@ -7,15 +7,30 @@ kernels from the sources in this checkout.  Imports nothing of JAX.
 
 Phases (any failure raises, so the exit code is non-zero):
 
-1. Card and build: ``nvidia-smi`` name and power limit, the kernel build.
-2. The fused equiv-power kernel against its plain torch version on the
-   card, at ``Config()`` (256 mics, 57x32 grid) for lerp and hybrid, in
-   modes f32/high/bf16, at B=1 and B=37, with CUDA-event times of both.
-3. The slice end to end: the native emulator on loopback ->
+1. Card and build: ``nvidia-smi`` name and power limit; both kernel
+   sources built by two ``nvcc`` processes started together, with the
+   ptxas register/spill report of the time-domain kernel.
+2. The fused equiv-power kernel (K1) against its plain torch version on
+   the card, at ``Config()`` (256 mics, 57x32 grid) for lerp and hybrid,
+   in modes f32/high/bf16, at B=1 and B=37, with CUDA-event times of both
+   and of the plain version's ``torch.bmm`` pair alone.
+3. The fused time-domain kernel (K2/K3 dense, K4 window) against its plain
+   version at ``Config()`` lerp and hybrid, f32/high/bf16, B=1 and B=16,
+   with CUDA-event times and the dense ``torch.matmul(W, Sdel)`` alone as
+   a yardstick.
+4. The live slice end to end: the native emulator on loopback ->
    ``Pipeline(..., power_backend="equiv_kernel", device="cuda")`` -> at
-   least 20 heatmaps, with the kernel's launch counter read around the
-   run; one received frame checked against the plain FP32 time-domain
-   ``steered_power``; the auto policy at ``high`` must pick the kernel.
+   least 20 heatmaps, with K1's launch counter read around the run; one
+   received frame checked against the plain FP32 time-domain
+   ``steered_power``; the auto policy at ``high`` must pick K1.
+5. Full rate end to end: the native emulator at line rate -> the batched
+   stage (K=16, 192 channels) through ``FusedBeamformer(tables)`` (dense),
+   then ``FusedBeamformer(tables, window=True)``, then the auto policy's
+   ``power_backend="equiv_kernel"``; each run must skip no frame, lose no
+   packet, launch its kernel once per batch, and match the plain FP32
+   ``steered_power`` on one batch it received.
+6. Policy: bf16 tables outside the equiv bar select the fused time-domain
+   kernel, which launches.
 
 The line before the last is a JSON record of the kernels; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -23,6 +38,7 @@ The line before the last is a JSON record of the kernels; the last line is
 
 from __future__ import annotations
 
+import concurrent.futures
 import json
 import os
 import subprocess
@@ -33,12 +49,27 @@ import numpy as np
 import torch
 
 HERE = os.path.dirname(os.path.abspath(__file__))
-KERNEL_SOURCE = "zybo_rt_sampler_image_detection_torch/ops/csrc/equiv_power.cu"
-KERNEL_REPLACES = "zybo_rt_sampler_image_detection_tpu/ops/equiv_kernel.py:74"
+CSRC = "zybo_rt_sampler_image_detection_torch/ops/csrc"
+TPU_OPS = "zybo_rt_sampler_image_detection_tpu/ops"
+KERNEL_SOURCE = f"{CSRC}/equiv_power.cu"
+KERNEL_REPLACES = f"{TPU_OPS}/equiv_kernel.py:74"
+TIME_SOURCE = f"{CSRC}/time_power.cu"
+TIME_REPLACES = {"dense": f"{TPU_OPS}/pallas_kernels.py:128",    # and K3 :212
+                 "window": f"{TPU_OPS}/pallas_kernels.py:363"}
 # max cellwise relative error of the kernel against its plain version
 TOL = {"f32": 2e-6, "high": 5e-5, "bf16": 3e-2}
+# the time-domain kernel: FP32 sums in another order (the JAX gate), and
+# the bf16 class with equal peaks
+TIME_TOL = {"f32": 1e-4, "high": 1e-4, "bf16": 3e-2}
 E2E_RTOL = 1e-4            # kernel path vs plain FP32 steered_power
 N_HEATMAPS = 20
+# H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, FP32 FLOP/s outside the
+# tensor cores (both kernels run FP32 FMAs on the CUDA cores)
+HBM_BPS = 3.35e12
+FP32_FLOPS = 67e12
+FULLRATE_BATCH = 16
+FULLRATE_CHANNELS = 192    # the 3 connected arrays of Config()
+FULLRATE_SECONDS = 4.0
 
 
 def rel_err(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -48,6 +79,19 @@ def rel_err(a: torch.Tensor, b: torch.Tensor) -> float:
 
 def peak(m: torch.Tensor) -> tuple:
     return tuple(int(i) for i in np.unravel_index(int(m.argmax()), m.shape))
+
+
+def bound(nbytes: float, flops: float) -> dict:
+    """The least time the card could take: the larger of the bytes over
+    the HBM rate and the operations over the FP32 rate."""
+    t_b, t_f = nbytes / HBM_BPS * 1e3, flops / FP32_FLOPS * 1e3
+    return dict(bound_ms=max(t_b, t_f),
+                bound_by="bytes" if t_b >= t_f else "operations")
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors
+               if t is not None)
 
 
 def time_ms(fn, iters: int) -> float:
@@ -74,11 +118,23 @@ def phase_card_and_build():
           f"device {torch.cuda.get_device_name(0)}")
     from zybo_rt_sampler_image_detection_torch.ops import _build
 
+    names = ("equiv_power", "time_power")
     t0 = time.perf_counter()
-    _build.load("equiv_power")
-    print(f"[build] equiv_power.cu built and loaded in "
-          f"{time.perf_counter() - t0:.2f} s (nvcc "
-          f"{_build.build_seconds.get('equiv_power', 0.0):.2f} s)")
+    # one nvcc per source, started together
+    with concurrent.futures.ThreadPoolExecutor(len(names)) as pool:
+        list(pool.map(_build.build, names))
+    for name in names:
+        _build.load(name)
+    print(f"[build] {', '.join(n + '.cu' for n in names)} built and "
+          f"loaded in {time.perf_counter() - t0:.2f} s (nvcc "
+          + ", ".join(f"{n} {_build.build_seconds.get(n, 0.0):.2f} s"
+                      for n in names) + ")")
+    report = os.path.join(_build._build_dir(), "time_power.ptxas.txt")
+    if os.path.exists(report):          # absent when the build was cached
+        with open(report) as f:
+            lines = [ln.strip() for ln in f
+                     if "registers" in ln or "spill" in ln]
+        print("[build] time_power ptxas: " + " | ".join(lines))
     return card
 
 
@@ -115,6 +171,10 @@ def phase_kernel_vs_plain(card: str) -> dict:
                 same_peak = all(peak(got[b]) == peak(ref[b])
                                 for b in range(B))
                 iters = 20 if B == 1 else 5
+                Sf, H1f, H2f = S.float(), fk.H1.float(), fk.H2.float()
+                lib_ms = time_ms(lambda: (torch.bmm(Sf, H1f),
+                                          torch.bmm(Sf, H2f)), iters)
+                del Sf, H1f, H2f
                 # in turns: plain, kernel, kernel, plain
                 p1 = time_ms(lambda: ek.equiv_power_plain(*args, **kw), iters)
                 k1 = time_ms(lambda: ek.equiv_power(*args, block_b=bt, **kw),
@@ -123,19 +183,119 @@ def phase_kernel_vs_plain(card: str) -> dict:
                              iters)
                 p2 = time_ms(lambda: ek.equiv_power_plain(*args, **kw), iters)
                 k_ms, p_ms = (k1 + k2) / 2, (p1 + p2) / 2
+                # bytes: every input once, the output once; operations:
+                # the two plane products, Parseval, the tail/head inverse
+                # DFT and the head corrections, as FP32 FMAs
+                BP, DP, KP = S.shape[1], fk.H1.shape[2], S.shape[2]
+                flops = 2 * BP * DP * (2 * fk.F * KP + 2 * fk.F
+                                       + 2 * fk.F * fk.Tt + fk.JM * fk.Tc)
+                bd = bound(nbytes(*args) + 4 * BP * DP, flops)
                 ok = err <= TOL[mode] and (mode != "bf16" or same_peak)
                 print(f"[K1] {algo:6s} {mode:4s} B={B:2d} bt={bt} "
                       f"F={fk.F} Tt={fk.Tt}: max rel err vs plain {err:.3e} "
                       f"(tol {TOL[mode]:.0e}) max abs {abs_err:.3e} "
                       f"same peak {same_peak} | vs time-domain "
                       f"{err_td:.3e} | kernel {k_ms:.4f} ms plain "
-                      f"{p_ms:.4f} ms [{card}]")
+                      f"{p_ms:.4f} ms bmm pair {lib_ms:.4f} ms bound "
+                      f"{bd['bound_ms']:.4f} ms ({bd['bound_by']}) [{card}]")
                 assert ok, f"kernel disagrees with plain: {algo} {mode} B={B}"
                 if (algo, mode, B) == ("lerp", "f32", 1):
                     # the main path's shape: Config() lerp, highest -> f32
-                    main = dict(max_abs_err=abs_err, ms=k_ms, plain_ms=p_ms)
+                    main = dict(max_abs_err=abs_err, ms=k_ms, plain_ms=p_ms,
+                                library_ms=lib_ms, **bd)
             del fk
         del tables, td
+        torch.cuda.empty_cache()
+    return main
+
+
+def phase_time_kernel_vs_plain(card: str) -> dict:
+    """K2/K3 (dense entry) and K4 (window entry) against their plain
+    version at Config(); returns the main path's entries (lerp, f32,
+    B=16: the full-rate stage's shape)."""
+    from zybo_rt_sampler_image_detection_torch.config import Config
+    from zybo_rt_sampler_image_detection_torch.ops import (
+        beamform, fused_kernel as fk)
+
+    cfg = Config()
+    gen = torch.Generator("cuda").manual_seed(4321)
+    frames = torch.randn(FULLRATE_BATCH, cfg.n_microphones, cfg.n_samples,
+                         device="cuda", generator=gen) * 0.05
+    main = {}
+    for algo in ("lerp", "hybrid"):
+        t32 = beamform.make_tables(cfg, algo, device="cuda")
+        td = beamform.steered_power(frames, t32)         # exact FP32 product
+        for mode in ("f32", "high", "bf16"):
+            mcfg = {"f32": cfg, "high": cfg.replace(matmul_precision="high"),
+                    "bf16": cfg.replace(matmul_dtype="bfloat16",
+                                        matmul_precision="default")}[mode]
+            tables = (t32 if mode == "f32"
+                      else beamform.make_tables(mcfg, algo, device="cuda"))
+            for variant in ("dense", "window"):
+                fb = fk.FusedBeamformer(tables, window=variant == "window")
+                assert fb.mode == mode, (fb.mode, mode)
+                for B in (1, FULLRATE_BATCH):
+                    x = frames[:B]
+                    s, corr = fb.kernel_inputs(x)
+                    kw = dict(bases=fb.bases, tau_min=fb.tau_min,
+                              tile_d=fb.tile_d, inv=fb.inv)
+
+                    def kern():
+                        return fk.fused_power(s, fb.Wp, corr,
+                                              chunk_b=fb.chunk_b, **kw)
+
+                    def plain():
+                        return fk.fused_power_plain(s, fb.Wp, corr, **kw)
+
+                    got, ref = kern(), plain()
+                    torch.cuda.synchronize()
+                    shape = (B, fb.res_x, fb.res_y)
+                    got = got[:B, :fb.D].reshape(shape)
+                    ref = ref[:B, :fb.D].reshape(shape)
+                    assert torch.isfinite(got).all(), (algo, mode, B)
+                    err = rel_err(got, ref)
+                    abs_err = (got.double() - ref.double()).abs().max().item()
+                    err_td = rel_err(got, td[:B])
+                    same_peak = all(peak(got[b]) == peak(ref[b])
+                                    for b in range(B))
+                    iters = 10 if B == 1 else 3
+                    # in turns: plain, kernel, kernel, plain
+                    p1 = time_ms(plain, iters)
+                    k1 = time_ms(kern, iters)
+                    k2 = time_ms(kern, iters)
+                    p2 = time_ms(plain, iters)
+                    k_ms, p_ms = (k1 + k2) / 2, (p1 + p2) / 2
+                    flops = 2 * B * fb.DP * fb.Wp.shape[0] * cfg.n_samples
+                    bd = bound(nbytes(s, fb.Wp, corr, fb.bases)
+                               + 4 * s.shape[0] * fb.DP, flops)
+                    line = (f"[K2-4] {algo:6s} {mode:4s} {variant:6s} "
+                            f"B={B:2d} TK={fb.TK}: max rel err vs plain "
+                            f"{err:.3e} (tol {TIME_TOL[mode]:.0e}) max abs "
+                            f"{abs_err:.3e} same peak {same_peak} | vs "
+                            f"exact FP32 {err_td:.3e} | kernel {k_ms:.4f} "
+                            f"ms plain {p_ms:.4f} ms bound "
+                            f"{bd['bound_ms']:.4f} ms ({bd['bound_by']})")
+                    if (algo, mode, B) == ("lerp", "f32", FULLRATE_BATCH):
+                        # the dense product alone, the port never calls it
+                        sdel = beamform.delay_lines(
+                            x.permute(1, 0, 2)[tables.adaptive],
+                            tables.tau_min, fb.T, stack_axis=0)
+                        w2 = t32.W.reshape(fb.D, -1)
+                        sd2 = sdel.reshape(w2.shape[1], -1)
+                        lib_ms = time_ms(lambda: torch.matmul(w2, sd2), iters)
+                        del sdel, sd2
+                        line += f" | dense matmul(W, Sdel) {lib_ms:.4f} ms"
+                        main[variant] = dict(max_abs_err=abs_err, ms=k_ms,
+                                             plain_ms=p_ms,
+                                             library_ms=lib_ms, **bd)
+                    print(line + f" [{card}]")
+                    ok = (err <= TIME_TOL[mode]
+                          and (mode != "bf16" or same_peak))
+                    assert ok, (f"time kernel disagrees with plain: {algo} "
+                                f"{mode} {variant} B={B}")
+                del fb
+            del tables
+        del t32, td
         torch.cuda.empty_cache()
     return main
 
@@ -223,6 +383,203 @@ def phase_end_to_end() -> int:
     return launches
 
 
+class _Recorder:
+    """Wraps a stage's power_fn and keeps one batch it computed (input and
+    output), for the check against the plain product."""
+
+    def __init__(self, fn, keep_after: int = 8):
+        self.fn, self.calls, self.keep_after = fn, 0, keep_after
+        self.x = self.y = None
+
+    def __call__(self, frames):
+        out = self.fn(frames)
+        self.calls += 1
+        if self.x is None and self.calls > self.keep_after:
+            self.x, self.y = frames.clone(), out.clone()
+        return out
+
+
+def _fullrate_run(label: str, make_pipeline, counter) -> dict:
+    """One full-rate run: the stage built and warmed up, the emulator at
+    line rate, the counter set to 0 just before the run and read just
+    after it."""
+    from zybo_rt_sampler_image_detection_torch.ingest.streamer import (
+        NativeStreamer)
+    from zybo_rt_sampler_image_detection_torch.ops import beamform
+
+    p, rec = make_pipeline()
+    cfg = p.cfg
+    stage = p.make_heatmap_batched(batch=FULLRATE_BATCH,
+                                   channels=FULLRATE_CHANNELS,
+                                   sink=lambda powers, first_seq: None)
+    stage.warmup()
+    rec.x = rec.y = None
+    rec.calls = 0
+    t = np.arange(cfg.n_samples * 64) / cfg.sample_rate
+    sig = (np.tile(np.sin(2 * np.pi * 8000.0 * t).astype(np.float32),
+                   (FULLRATE_CHANNELS, 1))
+           + np.random.default_rng(5).standard_normal(
+               (FULLRATE_CHANNELS, t.size)).astype(np.float32)) * 0.05
+    emu = NativeStreamer(cfg, n_arrays=cfg.active_arrays)
+    emu.start(sig, rate=cfg.sample_rate)
+    try:
+        p.connect(timeout=30.0)
+        setattr(*counter, 0)
+        p.run_stage(stage)
+        t0, sent0 = time.perf_counter(), emu.sent
+        # the emulator's packets in each quarter second: an even slowdown
+        # and one long stall look alike in the total
+        marks = [sent0]
+        while time.perf_counter() - t0 < FULLRATE_SECONDS:
+            time.sleep(0.25)
+            marks.append(emu.sent)
+        sent = marks[-1] - sent0
+    finally:
+        p.stop()
+        launches = getattr(*counter)
+        elapsed = time.perf_counter() - t0
+        emu.stop()
+    rep = p.report()
+    gaps = p.receiver.native_stats.gaps
+    line_rate = cfg.sample_rate / cfg.n_samples
+    lat = rep[stage.metric.name]
+    print(f"[fullrate] {label}: processed {stage.processed} frames in "
+          f"{elapsed:.2f} s ({stage.processed / elapsed:.1f}/s vs line rate "
+          f"{line_rate:.1f}/s); skipped {stage.skipped}; ingest gaps {gaps}; "
+          f"kernel launches {launches}; batch latency p50 "
+          f"{lat['latency_p50_ms']} ms p95 {lat['latency_p95_ms']} ms; "
+          f"emulator {sent / FULLRATE_SECONDS:.0f} pkt/s (line "
+          f"{cfg.sample_rate:.0f}); packets per 0.25 s "
+          f"{np.diff(marks).tolist()}")
+    assert stage.processed > 0, "no batch processed"
+    assert stage.skipped == 0, f"{label}: {stage.skipped} frames skipped"
+    assert gaps == 0, f"{label}: {gaps} ingest gaps"
+    assert launches * FULLRATE_BATCH >= stage.processed, (
+        f"{label}: {launches} launches for {stage.processed} frames")
+    assert rec.x is not None, "no batch recorded"
+    ref = beamform.steered_power(rec.x, p.tables)
+    torch.cuda.synchronize()
+    err = rel_err(rec.y, ref)
+    print(f"[fullrate] {label}: a received batch vs plain FP32 "
+          f"steered_power: max rel err {err:.3e} (tol {E2E_RTOL:.0e})")
+    assert torch.isfinite(rec.y).all() and err <= E2E_RTOL, label
+    # the stage's device program alone (pad prologue + power) on a
+    # 192-channel batch: the heatmaps/s the device could give
+    x = rec.x[:, :FULLRATE_CHANNELS].contiguous()
+    prog_ms = time_ms(lambda: stage.power_fn(x), 10)
+    cap = FULLRATE_BATCH / prog_ms * 1e3
+    print(f"[fullrate] {label}: device program {prog_ms:.3f} ms per batch "
+          f"of {FULLRATE_BATCH} -> {cap:.0f} heatmaps/s "
+          f"({cap / line_rate:.1f}x line rate)")
+    out = dict(launches=launches, processed=stage.processed)
+    del p, stage, rec
+    torch.cuda.empty_cache()
+    return out
+
+
+def _ingest_alone(cfg, seconds: float = 2.0) -> None:
+    """The host's share of the full-rate path, without the device: the
+    emulator at line rate -> native ingest -> K-frame batches read and
+    dropped.  Says whether the host alone reaches the line rate."""
+    from zybo_rt_sampler_image_detection_torch.ingest.receiver import (
+        Receiver)
+    from zybo_rt_sampler_image_detection_torch.ingest.streamer import (
+        NativeStreamer)
+
+    rx = Receiver(cfg, replay_mode=True, backend="native")
+    sig = np.random.default_rng(5).standard_normal(
+        (FULLRATE_CHANNELS, cfg.n_samples * 64)).astype(np.float32) * 0.05
+    emu = NativeStreamer(cfg, n_arrays=cfg.active_arrays)
+    emu.start(sig, rate=cfg.sample_rate)
+    read = skipped = 0
+    try:
+        rx.connect(timeout=30.0)
+        next_seq = rx.stream_anchor_seq
+        t0, sent0 = time.perf_counter(), emu.sent
+        while time.perf_counter() - t0 < seconds:
+            batch, first, sk = rx.read_batch(FULLRATE_BATCH, next_seq,
+                                             timeout=1.0,
+                                             channels=FULLRATE_CHANNELS)
+            next_seq = first + FULLRATE_BATCH
+            read += FULLRATE_BATCH
+            skipped += sk
+        elapsed, sent = time.perf_counter() - t0, emu.sent - sent0
+    finally:
+        rx.disconnect()
+        emu.stop()
+    line_rate = cfg.sample_rate / cfg.n_samples
+    print(f"[fullrate] ingest alone (no device): read {read} frames in "
+          f"{elapsed:.2f} s ({read / elapsed:.1f}/s vs line rate "
+          f"{line_rate:.1f}/s); skipped {skipped}; ingest gaps "
+          f"{rx.native_stats.gaps}; emulator {sent / elapsed:.0f} pkt/s "
+          f"(line {cfg.sample_rate:.0f})")
+
+
+def phase_fullrate() -> dict:
+    from zybo_rt_sampler_image_detection_torch.apps import pipeline
+    from zybo_rt_sampler_image_detection_torch.config import Config
+    from zybo_rt_sampler_image_detection_torch.ops import (
+        beamform, equiv_kernel as ek, fused_kernel as fk)
+
+    cfg = Config()
+    _ingest_alone(cfg)
+    out = {}
+    for variant in ("dense", "window"):
+        def make(variant=variant):
+            tables = beamform.make_tables(cfg, "lerp", device="cuda")
+            rec = _Recorder(fk.FusedBeamformer(tables,
+                                               window=variant == "window"))
+            p = pipeline.Pipeline(cfg, "lerp", replay_mode=True,
+                                  backend="native", device="cuda",
+                                  power_fn=rec)
+            return p, rec
+
+        out[variant] = _fullrate_run(f"FusedBeamformer {variant}", make,
+                                     (fk.fused_power, "launches"))
+
+    def make_equiv():
+        p = pipeline.Pipeline(cfg, "lerp", replay_mode=True,
+                              backend="native", device="cuda",
+                              power_backend="equiv_kernel")
+        p._power_fn = rec = _Recorder(p._power_fn)
+        return p, rec
+
+    out["equiv"] = _fullrate_run("power_backend=equiv_kernel", make_equiv,
+                                 (ek.equiv_power, "launches"))
+    return out
+
+
+def phase_policy():
+    from zybo_rt_sampler_image_detection_torch.apps import pipeline
+    from zybo_rt_sampler_image_detection_torch.config import Config
+    from zybo_rt_sampler_image_detection_torch.ops import (
+        beamform, fused_kernel as fk)
+
+    cfg = Config().replace(matmul_dtype="bfloat16",
+                           matmul_precision="default")
+    tables = beamform.make_tables(cfg, "lerp", device="cuda")
+    bar = pipeline._equiv_bar
+    pipeline._equiv_bar = lambda t: False     # a shape outside the bar
+    try:
+        kind, obj = pipeline._select_power_backend(tables)
+    finally:
+        pipeline._equiv_bar = bar
+    print(f"[policy] bf16 tables outside the equiv bar: {kind} "
+          f"({type(obj).__name__}, mode {getattr(obj, 'mode', None)})")
+    assert kind == "fused" and isinstance(obj, fk.FusedBeamformer), kind
+    x = torch.randn(2, cfg.n_microphones, cfg.n_samples, device="cuda") * 0.05
+    before = fk.fused_power.launches
+    got = obj(x)
+    torch.cuda.synchronize()
+    assert fk.fused_power.launches == before + 1, "the kernel did not launch"
+    ref = beamform.steered_power(x, tables)
+    same = all(peak(got[b]) == peak(ref[b]) for b in range(2))
+    err = rel_err(got, ref)
+    print(f"[policy] fused bf16 vs the plain product on bf16 tables: max "
+          f"rel err {err:.3e}, same peak {same}")
+    assert same and err <= TIME_TOL["bf16"]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
@@ -233,12 +590,27 @@ def main() -> int:
     import zybo_rt_sampler_image_detection_torch  # noqa: F401
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
     card = phase_card_and_build()
     main_k = phase_kernel_vs_plain(card)
+    t1 = time.perf_counter()
+    main_t = phase_time_kernel_vs_plain(card)
+    t2 = time.perf_counter()
     launches = phase_end_to_end()
-    print(json.dumps({"kernels": [dict(
-        name="equiv_power", route="cuda", source=KERNEL_SOURCE,
-        replaces=KERNEL_REPLACES, launches=launches, **main_k)]}))
+    t3 = time.perf_counter()
+    full = phase_fullrate()
+    phase_policy()
+    t4 = time.perf_counter()
+    print(f"[time] build+K1 {t1 - t0:.1f} s, K2-4 {t2 - t1:.1f} s, live "
+          f"{t3 - t2:.1f} s, full rate+policy {t4 - t3:.1f} s")
+    kernels = [dict(name="equiv_power", route="cuda", source=KERNEL_SOURCE,
+                    replaces=KERNEL_REPLACES, launches=launches, **main_k)]
+    for variant in ("dense", "window"):
+        kernels.append(dict(
+            name=f"time_power_{variant}", route="cuda", source=TIME_SOURCE,
+            replaces=TIME_REPLACES[variant],
+            launches=full[variant]["launches"], **main_t[variant]))
+    print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

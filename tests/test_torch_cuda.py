@@ -1,5 +1,5 @@
-"""The fused equiv-power CUDA kernel against its plain torch version, on
-the card.  Every test is marked ``cuda`` and skips where
+"""The port's CUDA kernels (fused equiv power, fused time-domain power)
+against their plain torch versions, on the card.  Every test is marked ``cuda`` and skips where
 ``torch.cuda.is_available()`` is False (the kernel has no CPU mode).
 
 This file imports neither JAX nor the test conftest's helpers, so it also
@@ -16,6 +16,7 @@ from zybo_rt_sampler_image_detection_torch import Config
 from zybo_rt_sampler_image_detection_torch.apps import pipeline
 from zybo_rt_sampler_image_detection_torch.ops import beamform as tb
 from zybo_rt_sampler_image_detection_torch.ops import equiv_kernel as tk
+from zybo_rt_sampler_image_detection_torch.ops import fused_kernel as tf
 
 pytestmark = pytest.mark.cuda
 
@@ -96,3 +97,112 @@ def test_auto_policy_picks_kernel_at_high(cuda):
                        device=cuda)
     kind, obj = pipeline._select_power_backend(t)
     assert kind == "equiv_kernel" and obj.mode == "high"
+
+
+# --- fused time-domain power (csrc/time_power.cu) -------------------------
+
+# max cellwise relative error against the plain version: FP32 sums in
+# another order (f32/high), the JAX bf16 class (bf16)
+TIME_TOL = {"f32": 1e-4, "high": 1e-4, "bf16": 3e-2}
+
+
+def _tables(cfg, algorithm, mode, device, cache=False):
+    if mode == "bf16":
+        cfg = cfg.replace(matmul_dtype="bfloat16", matmul_precision="default")
+    elif mode == "high":
+        cfg = cfg.replace(matmul_precision="high")
+    return tb.make_tables(cfg, algorithm, cache=cache, device=device)
+
+
+def _run_time(fused, x):
+    s, corr = fused.kernel_inputs(x)
+    kw = dict(bases=fused.bases, tau_min=fused.tau_min,
+              tile_d=fused.tile_d, inv=fused.inv)
+    before = tf.fused_power.launches
+    got = tf.fused_power(s, fused.Wp, corr, chunk_b=fused.chunk_b, **kw)
+    torch.cuda.synchronize()
+    assert tf.fused_power.launches == before + 1
+    return got, tf.fused_power_plain(s, fused.Wp, corr, **kw)
+
+
+@pytest.mark.parametrize("window", [False, True], ids=["dense", "window"])
+@pytest.mark.parametrize("mode", ["f32", "high", "bf16"])
+@pytest.mark.parametrize("algorithm", ["lerp", "hybrid", "convolve"])
+@pytest.mark.parametrize("B", [1, 3])
+def test_time_kernel_matches_plain_tiny(cuda, window, mode, algorithm, B):
+    cfg = Config.tiny()
+    t = _tables(cfg, algorithm, mode, cuda)
+    fused = tf.FusedBeamformer(t, tile_d=8, window=window)
+    assert fused.mode == mode
+    got, ref = _run_time(fused, torch.from_numpy(_frames(cfg, B)).to(cuda))
+    np.testing.assert_allclose(got.cpu().numpy(), ref.cpu().numpy(),
+                               rtol=TIME_TOL[mode], atol=1e-12)
+
+
+@pytest.mark.parametrize("tile_d", [8, 16, 32])
+@pytest.mark.parametrize("chunk_b", [1, 2])
+def test_time_kernel_tiles(cuda, tile_d, chunk_b):
+    """Every direction tile and frame tile, with batch padding (B=5)."""
+    cfg = Config.tiny()
+    t = tb.make_tables(cfg, "hybrid", cache=False, device=cuda)
+    x = torch.from_numpy(_frames(cfg, 5)).to(cuda)
+    for window in (False, True):
+        fused = tf.FusedBeamformer(t, tile_d=tile_d, chunk_b=chunk_b,
+                                   window=window)
+        got, ref = _run_time(fused, x)
+        np.testing.assert_allclose(got.cpu().numpy(), ref.cpu().numpy(),
+                                   rtol=1e-4, atol=1e-12)
+        power = fused(x)
+        exact = tb.steered_power(x, t)
+        np.testing.assert_allclose(power.cpu().numpy(), exact.cpu().numpy(),
+                                   rtol=1e-4, atol=1e-12)
+
+
+@pytest.mark.parametrize("window", [False, True], ids=["dense", "window"])
+@pytest.mark.parametrize("mode", ["f32", "bf16"])
+@pytest.mark.parametrize("algorithm", ["lerp", "hybrid"])
+def test_time_kernel_matches_plain_reference_shape(cuda, window, mode,
+                                                   algorithm):
+    cfg = Config()
+    t = _tables(cfg, algorithm, mode, cuda, cache=True)
+    fused = tf.FusedBeamformer(t, window=window)
+    x = torch.from_numpy(_frames(cfg, 2) * 0.5).to(cuda)
+    got, ref = _run_time(fused, x)
+    np.testing.assert_allclose(got.cpu().numpy(), ref.cpu().numpy(),
+                               rtol=TIME_TOL[mode], atol=1e-14)
+    if mode == "f32":
+        power = fused(x)
+        exact = tb.steered_power(x, t)
+        np.testing.assert_allclose(power.cpu().numpy(),
+                                   exact.cpu().numpy(), rtol=1e-4,
+                                   atol=1e-14)
+
+
+def test_time_wrapper_rejects_bad_inputs(cuda):
+    t = tb.make_tables(Config.tiny(), "lerp", cache=False, device=cuda)
+    fused = tf.FusedBeamformer(t, tile_d=8)
+    s, corr = fused.kernel_inputs(torch.zeros(3, 16, 64, device=cuda))
+    kw = dict(tau_min=fused.tau_min, tile_d=8, inv=fused.inv)
+    with pytest.raises(ValueError, match="dtype"):
+        tf.fused_power(s.double(), fused.Wp, corr, **kw)
+    with pytest.raises(ValueError, match="chunk_b"):
+        tf.fused_power(s, fused.Wp, corr, chunk_b=2, **kw)
+    with pytest.raises(ValueError, match="device"):
+        tf.fused_power(s, fused.Wp.cpu(), corr, **kw)
+    with pytest.raises(ValueError, match="contiguous"):
+        tf.fused_power(s.transpose(1, 2).contiguous().transpose(1, 2),
+                       fused.Wp, corr, **kw)
+
+
+def test_fused_policy_launches_kernel(cuda, monkeypatch):
+    """bf16 tables outside the equiv bar select the fused time-domain
+    kernel, which launches on CUDA tables (no fallback)."""
+    monkeypatch.setattr(pipeline, "_equiv_bar", lambda tables: False)
+    t = _tables(Config.tiny(), "lerp", "bf16", cuda)
+    kind, obj = pipeline._select_power_backend(t)
+    assert kind == "fused" and isinstance(obj, tf.FusedBeamformer)
+    before = tf.fused_power.launches
+    out = pipeline.default_power_fn(t)(
+        torch.from_numpy(_frames(Config.tiny(), 4)).to(cuda))
+    torch.cuda.synchronize()
+    assert out.shape == (4, 9, 7) and tf.fused_power.launches == before + 1

@@ -17,7 +17,7 @@ from zybo_rt_sampler_image_detection_torch.apps import demo, pipeline
 from zybo_rt_sampler_image_detection_torch.config import Config
 from zybo_rt_sampler_image_detection_torch.ingest import streamer
 from zybo_rt_sampler_image_detection_torch.ops import (
-    beamform, equiv_kernel, freq_equiv, geometry)
+    beamform, equiv_kernel, freq_equiv, fused_kernel, geometry)
 
 torch.set_num_threads(2)
 
@@ -114,16 +114,22 @@ def test_equiv_bar_for_80gb():
 
 def test_policy_on_cuda_tables(monkeypatch):
     """Mirror of ``_select_power_backend`` with 'device is CUDA' for
-    'backend is TPU': high/bf16 in the bar -> the kernel; highest -> the
-    exact product; bf16 outside the bar -> the unported K2 raises."""
+    'backend is TPU': high/bf16 in the bar -> the equiv kernel; highest ->
+    the exact product; bf16 outside the bar -> the fused time-domain
+    kernel (JAX ``pipeline.py:151-155``)."""
     built = []
 
     class FakeFused:
         def __init__(self, t, *a, **kw):
             built.append(t)
 
+    class FakeTimeFused:
+        def __init__(self, t, *a, **kw):
+            self.t = t
+
     sentinel = object()
     monkeypatch.setattr(equiv_kernel, "FusedEquivBeamformer", FakeFused)
+    monkeypatch.setattr(fused_kernel, "FusedBeamformer", FakeTimeFused)
     monkeypatch.setattr(freq_equiv, "make_equiv_tables", lambda t: sentinel)
     kind, obj = pipeline._select_power_backend(
         _FakeTables(1824, 49, 256, 256, precision="high"))
@@ -133,9 +139,14 @@ def test_policy_on_cuda_tables(monkeypatch):
     assert kind == "equiv_kernel"
     assert pipeline._select_power_backend(
         _FakeTables(1824, 49, 256, 256, precision="highest")) == ("xla", None)
-    with pytest.raises(NotImplementedError, match="K2"):
-        pipeline._select_power_backend(
-            _FakeTables(4225, 1, 64, 256, precision="default"))
+    short = _FakeTables(4225, 1, 64, 256, precision="default")
+    kind, obj = pipeline._select_power_backend(short)
+    assert kind == "fused" and isinstance(obj, FakeTimeFused)
+    assert obj.t is short
+    # high outside the bar takes the fused kernel too, as in JAX
+    kind, _ = pipeline._select_power_backend(
+        _FakeTables(4225, 1, 64, 256, precision="high"))
+    assert kind == "fused"
     # CPU tensors take the exact product at every rung
     assert pipeline._select_power_backend(
         _FakeTables(1824, 49, 256, 256, device="cpu")) == ("xla", None)
@@ -163,6 +174,7 @@ def test_default_power_fn_every_backend(monkeypatch, rng):
     ref = _jax_power(cfg, frame)
     kinds = [("equiv_kernel", equiv_kernel.FusedEquivBeamformer(t)),
              ("freq_equiv", freq_equiv.make_equiv_tables(t)),
+             ("fused", fused_kernel.FusedBeamformer(t)),
              ("xla", None)]
     x = torch.from_numpy(frame)
     for kind, obj in kinds:
@@ -235,7 +247,7 @@ def test_port_imports_without_jax():
             "from zybo_rt_sampler_image_detection_torch.apps import "
             "pipeline, demo; "
             "from zybo_rt_sampler_image_detection_torch.ops import "
-            "equiv_kernel, _build; "
+            "equiv_kernel, fused_kernel, _build; "
             "assert not any(m == 'jax' or m.startswith('jax.') "
             "for m, v in sys.modules.items() if v is not None); "
             "print('ok')")

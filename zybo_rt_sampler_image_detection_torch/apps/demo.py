@@ -1,13 +1,17 @@
-"""CLI entry point — the ``mimo`` heatmap demo and the packet emulator.
+"""CLI entry point — the ``mimo`` heatmap demo, the full-rate proof and
+the packet emulator.
 
 Examples::
 
     python -m zybo_rt_sampler_image_detection_torch.apps.demo emulate &
     python -m zybo_rt_sampler_image_detection_torch.apps.demo mimo --replay --headless --equiv-kernel --frames 20
+    python -m zybo_rt_sampler_image_detection_torch.apps.demo fullrate --seconds 10
+    python -m zybo_rt_sampler_image_detection_torch.apps.demo fullrate --device cpu --preset tiny --seconds 3
 
-Ported so far: ``mimo --headless`` and ``emulate`` (parity with
-``PC/demo.py`` mimo and ``udp/streamer.c``).  The cv2 viewer, ``miso``,
-``record``, ``fullrate``, ``sensorfusion`` and ``web`` are later slices.
+Ported so far: ``mimo --headless``, ``fullrate`` (heatmaps only) and
+``emulate`` (parity with ``PC/demo.py`` mimo and ``udp/streamer.c``).  The
+cv2 viewer, ``miso``, ``fullrate --audio``, ``record``, ``sensorfusion``
+and ``web`` are later slices.
 """
 
 from __future__ import annotations
@@ -62,7 +66,7 @@ def _resolve_arrays(args, cfg) -> int:
     return n
 
 
-def _make_pipeline(args):
+def _make_pipeline(args, ring_frames: int = 64):
     from .pipeline import Pipeline
 
     cfg = {"default": Config, "reference": Config.reference,
@@ -75,6 +79,7 @@ def _make_pipeline(args):
                          f"(ROADMAP queue 1, item 10)")
     return Pipeline(cfg, algorithm=args.algorithm, replay_mode=args.replay,
                     backend=args.backend, device=args.device,
+                    ring_frames=ring_frames,
                     power_backend=("equiv_kernel" if args.equiv_kernel
                                    else "freq_equiv" if args.equiv
                                    else "auto"))
@@ -149,6 +154,75 @@ def cmd_emulate(args):
         s.close()
 
 
+def cmd_fullrate(args):
+    """Full-line-rate proof: emulator at the true packet rate (48,828
+    pkt/s for the reference config) -> native ingest -> batched device
+    beamforming of EVERY frame; prints per-stage accounting.  The pass
+    criterion is skipped == 0 (no frame overwritten unread) and ingest
+    gaps == 0 for the whole run.  The device program is built before the
+    first packet flows, and only the connected channel rows are sent to
+    the device (the tail rows are never written)."""
+    if args.audio:
+        raise SystemExit("fullrate --audio (the listening stages) is not "
+                         "yet ported (ROADMAP queue 1, item 9)")
+    from ..ingest.streamer import NativeStreamer
+
+    p = _make_pipeline(args, ring_frames=max(64, 4 * args.batch))
+    # the emulator MUST use the pipeline's config (it honors --preset /
+    # --port): a mismatched packet layout would make every datagram
+    # invalid for the receiver
+    cfg = p.cfg
+    n_arrays = _resolve_arrays(args, cfg)
+    n_ch = n_arrays * cfg.rows * cfg.columns
+    line_rate = cfg.sample_rate / cfg.n_samples
+    print(f"line rate {line_rate:.1f} frames/s "
+          f"({cfg.sample_rate:.0f} pkt/s); batch={args.batch}; "
+          f"channels={n_ch}; device={p.device}; running "
+          f"{args.seconds:.0f}s ...")
+    # the maps are only counted: no display sink
+    stage = p.make_heatmap_batched(batch=args.batch,
+                                   sink=lambda powers, first_seq: None,
+                                   channels=n_ch, transfer=args.transfer)
+    t0 = time.time()
+    stage.warmup()                          # build before packets flow
+    print(f"  device program ready in {time.time()-t0:.1f}s; "
+          "starting native line-rate emulator")
+    t = np.arange(cfg.n_samples * 64) / cfg.sample_rate
+    sig = np.tile(np.sin(2 * np.pi * 8000.0 * t).astype(np.float32),
+                  (n_ch, 1)) * 0.1
+    emu = NativeStreamer(cfg, n_arrays=n_arrays)
+    emu.start(sig, rate=cfg.sample_rate)
+    try:
+        p.connect()                        # first packet = header
+        p.run_stage(stage)
+        t0 = time.time()
+        while time.time() - t0 < args.seconds:
+            time.sleep(1.0)
+            rate = stage.processed / (time.time() - t0)
+            print(f"  t={time.time()-t0:5.1f}s processed={stage.processed} "
+                  f"({rate:.1f}/s) skipped={stage.skipped} "
+                  f"ingest_gaps={p.receiver.native_stats.gaps}")
+    finally:
+        sent = emu.stop()
+        elapsed = time.time() - t0
+        p.stop()
+    rep = p.report()
+    ok = stage.skipped == 0 and p.receiver.native_stats.gaps == 0
+    print(f"\nemulator sent {sent} packets "
+          f"({sent / elapsed:.0f}/s vs line {cfg.sample_rate:.0f}/s)")
+    print(f"processed {stage.processed} frames in {elapsed:.1f}s "
+          f"({stage.processed / elapsed:.1f}/s vs line rate "
+          f"{line_rate:.1f}/s)")
+    print(f"skipped (ring overwrites) = {stage.skipped}; "
+          f"ingest packet gaps = {p.receiver.native_stats.gaps}")
+    key = stage.metric.name
+    print("batch latency p50 =", rep[key]["latency_p50_ms"], "ms  p95 =",
+          rep[key]["latency_p95_ms"], "ms")
+    print("metrics:", rep)
+    print("FULL RATE SUSTAINED" if ok else "DROPS DETECTED")
+    return 0 if ok else 1
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(prog="zybo-rt-torch")
     sub = ap.add_subparsers(dest="cmd", required=True)
@@ -170,6 +244,22 @@ def main(argv=None):
                         "core at line rate)")
     p.add_argument("--port", type=int, default=None)
     p.set_defaults(fn=cmd_emulate)
+
+    p = sub.add_parser("fullrate",
+                       help="line-rate emulator -> batched beamforming of "
+                            "every frame; pass = zero drops")
+    _add_common(p)
+    p.add_argument("--seconds", type=float, default=30.0)
+    p.add_argument("--batch", type=int, default=64)
+    p.add_argument("--arrays", type=int, default=None,
+                   help="default: the config's active_arrays")
+    p.add_argument("--audio", default=None,
+                   help="the listening stage (not yet ported)")
+    p.add_argument("--transfer", default="f32", choices=["f32", "f16"],
+                   help="host->device sample dtype: f16 halves the "
+                        "traffic at ~1e-3 relative error (display-grade "
+                        "opt-in)")
+    p.set_defaults(fn=cmd_fullrate, replay=True)
 
     args = ap.parse_args(argv)
     return args.fn(args)

@@ -101,9 +101,11 @@ def test_auto_policy_picks_kernel_at_high(cuda):
 
 # --- fused time-domain power (csrc/time_power.cu) -------------------------
 
-# max cellwise relative error against the plain version: FP32 sums in
-# another order (f32/high), the JAX bf16 class (bf16)
-TIME_TOL = {"f32": 1e-4, "high": 1e-4, "bf16": 3e-2}
+# max cellwise relative error of the kernel against its plain version, in
+# every mode: the same operands, FP32 sums in another order
+TIME_RTOL = 1e-4
+# bf16 tables against the exact FP32 product: the bf16 class, equal peaks
+BF16_CLASS = 3e-2
 
 
 def _tables(cfg, algorithm, mode, device, cache=False):
@@ -114,15 +116,29 @@ def _tables(cfg, algorithm, mode, device, cache=False):
     return tb.make_tables(cfg, algorithm, cache=cache, device=device)
 
 
-def _run_time(fused, x):
+def _plan(fused, dense):
+    """``(w, bases)``: the planned windows, or the degenerate dense plan
+    (every window all T taps from base 0, the TPU's K2/K3 contraction)."""
+    if not dense:
+        return fused.Wp, fused.bases
+    bases = torch.zeros_like(fused.bases)
+    return tf._prep_weights(fused.t.W, bases, fused.T, fused.tile_d,
+                            fused.DP, fused.plane_dtype), bases
+
+
+def _run_time(fused, x, dense=False):
     s, corr = fused.kernel_inputs(x)
-    kw = dict(bases=fused.bases, tau_min=fused.tau_min,
-              tile_d=fused.tile_d, inv=fused.inv)
+    w, bases = _plan(fused, dense)
+    kw = dict(tau_min=fused.tau_min, tile_d=fused.tile_d, inv=fused.inv)
     before = tf.fused_power.launches
-    got = tf.fused_power(s, fused.Wp, corr, chunk_b=fused.chunk_b, **kw)
+    got = tf.fused_power(s, w, bases, corr, **kw)
     torch.cuda.synchronize()
     assert tf.fused_power.launches == before + 1
-    return got, tf.fused_power_plain(s, fused.Wp, corr, **kw)
+    return got, tf.fused_power_plain(s, w, bases, corr, **kw)
+
+
+def _maps(fused, out, B):
+    return out[:, :fused.D].reshape(B, fused.res_x, fused.res_y)
 
 
 @pytest.mark.parametrize("window", [False, True], ids=["dense", "window"])
@@ -132,30 +148,31 @@ def _run_time(fused, x):
 def test_time_kernel_matches_plain_tiny(cuda, window, mode, algorithm, B):
     cfg = Config.tiny()
     t = _tables(cfg, algorithm, mode, cuda)
-    fused = tf.FusedBeamformer(t, tile_d=8, window=window)
+    fused = tf.FusedBeamformer(t, tile_d=8)
     assert fused.mode == mode
-    got, ref = _run_time(fused, torch.from_numpy(_frames(cfg, B)).to(cuda))
+    got, ref = _run_time(fused, torch.from_numpy(_frames(cfg, B)).to(cuda),
+                         dense=not window)
     np.testing.assert_allclose(got.cpu().numpy(), ref.cpu().numpy(),
-                               rtol=TIME_TOL[mode], atol=1e-12)
+                               rtol=TIME_RTOL, atol=1e-12)
 
 
 @pytest.mark.parametrize("tile_d", [8, 16, 32])
-@pytest.mark.parametrize("chunk_b", [1, 2])
-def test_time_kernel_tiles(cuda, tile_d, chunk_b):
-    """Every direction tile and frame tile, with batch padding (B=5)."""
+@pytest.mark.parametrize("B", [1, 5])
+def test_time_kernel_tiles(cuda, tile_d, B):
+    """Every direction tile, the planned windows and the dense plan."""
     cfg = Config.tiny()
     t = tb.make_tables(cfg, "hybrid", cache=False, device=cuda)
-    x = torch.from_numpy(_frames(cfg, 5)).to(cuda)
-    for window in (False, True):
-        fused = tf.FusedBeamformer(t, tile_d=tile_d, chunk_b=chunk_b,
-                                   window=window)
-        got, ref = _run_time(fused, x)
+    x = torch.from_numpy(_frames(cfg, B)).to(cuda)
+    fused = tf.FusedBeamformer(t, tile_d=tile_d)
+    exact = tb.steered_power(x, t).cpu().numpy()
+    for dense in (False, True):
+        got, ref = _run_time(fused, x, dense=dense)
         np.testing.assert_allclose(got.cpu().numpy(), ref.cpu().numpy(),
-                                   rtol=1e-4, atol=1e-12)
-        power = fused(x)
-        exact = tb.steered_power(x, t)
-        np.testing.assert_allclose(power.cpu().numpy(), exact.cpu().numpy(),
-                                   rtol=1e-4, atol=1e-12)
+                                   rtol=TIME_RTOL, atol=1e-12)
+        np.testing.assert_allclose(_maps(fused, got, B).cpu().numpy(),
+                                   exact, rtol=1e-4, atol=1e-12)
+    np.testing.assert_allclose(fused(x).cpu().numpy(), exact, rtol=1e-4,
+                               atol=1e-12)
 
 
 @pytest.mark.parametrize("window", [False, True], ids=["dense", "window"])
@@ -165,17 +182,21 @@ def test_time_kernel_matches_plain_reference_shape(cuda, window, mode,
                                                    algorithm):
     cfg = Config()
     t = _tables(cfg, algorithm, mode, cuda, cache=True)
-    fused = tf.FusedBeamformer(t, window=window)
+    fused = tf.FusedBeamformer(t)
     x = torch.from_numpy(_frames(cfg, 2) * 0.5).to(cuda)
-    got, ref = _run_time(fused, x)
+    got, ref = _run_time(fused, x, dense=not window)
     np.testing.assert_allclose(got.cpu().numpy(), ref.cpu().numpy(),
-                               rtol=TIME_TOL[mode], atol=1e-14)
+                               rtol=TIME_RTOL, atol=1e-14)
+    exact = tb.steered_power(x, _tables(cfg, algorithm, "f32", cuda,
+                                        cache=True))
+    power = _maps(fused, got, 2).double().cpu().numpy()
+    exact = exact.double().cpu().numpy()
     if mode == "f32":
-        power = fused(x)
-        exact = tb.steered_power(x, t)
-        np.testing.assert_allclose(power.cpu().numpy(),
-                                   exact.cpu().numpy(), rtol=1e-4,
-                                   atol=1e-14)
+        np.testing.assert_allclose(power, exact, rtol=1e-4, atol=1e-14)
+    else:
+        assert np.abs(power - exact).max() / exact.max() < BF16_CLASS
+        for b in range(2):
+            assert power[b].argmax() == exact[b].argmax()
 
 
 def test_time_wrapper_rejects_bad_inputs(cuda):
@@ -184,14 +205,14 @@ def test_time_wrapper_rejects_bad_inputs(cuda):
     s, corr = fused.kernel_inputs(torch.zeros(3, 16, 64, device=cuda))
     kw = dict(tau_min=fused.tau_min, tile_d=8, inv=fused.inv)
     with pytest.raises(ValueError, match="dtype"):
-        tf.fused_power(s.double(), fused.Wp, corr, **kw)
-    with pytest.raises(ValueError, match="chunk_b"):
-        tf.fused_power(s, fused.Wp, corr, chunk_b=2, **kw)
+        tf.fused_power(s.double(), fused.Wp, fused.bases, corr, **kw)
+    with pytest.raises(ValueError, match="bases"):
+        tf.fused_power(s, fused.Wp, fused.bases.long(), corr, **kw)
     with pytest.raises(ValueError, match="device"):
-        tf.fused_power(s, fused.Wp.cpu(), corr, **kw)
+        tf.fused_power(s, fused.Wp.cpu(), fused.bases, corr, **kw)
     with pytest.raises(ValueError, match="contiguous"):
         tf.fused_power(s.transpose(1, 2).contiguous().transpose(1, 2),
-                       fused.Wp, corr, **kw)
+                       fused.Wp, fused.bases, corr, **kw)
 
 
 def test_fused_policy_launches_kernel(cuda, monkeypatch):

@@ -41,17 +41,32 @@ def _np(x):
     return x.double().cpu().numpy()
 
 
+def _dense_power(fused, frames):
+    """``fused``'s tables through the degenerate plan, every window all T
+    taps from base 0 (the TPU's dense contraction), as (B, X, Y)."""
+    bases = torch.zeros_like(fused.bases)
+    w = tf._prep_weights(fused.t.W, bases, fused.T, fused.tile_d, fused.DP,
+                         fused.plane_dtype)
+    s, corr = fused.kernel_inputs(torch.from_numpy(frames))
+    out = tf.fused_power(s, w, bases, corr, tau_min=fused.tau_min,
+                         tile_d=fused.tile_d, inv=fused.inv)
+    return _np(out[:, :fused.D].reshape(len(frames), fused.res_x,
+                                        fused.res_y))
+
+
 @pytest.mark.parametrize("window", [False, True], ids=["dense", "window"])
 @pytest.mark.parametrize("algorithm", ALGORITHMS)
 def test_fused_matches_jax(tiny_cfg, rng, algorithm, window):
+    """The port's planned windows against the JAX package's dense and
+    windowed kernels."""
     frames = _frames(tiny_cfg, rng)
     jt = jb.make_tables(tiny_cfg, algorithm, cache=False)
     ref = np.asarray(jb.steered_power(frames, jt), np.float64)
     jfused = np.asarray(jp.FusedBeamformer(jt, tile_d=8, chunk_b=2,
                                            window=window or None)(frames),
                         np.float64)
-    fused = tf.FusedBeamformer(_port(jt), tile_d=8, chunk_b=2, window=window)
-    assert fused.variant == ("window" if window else "full")
+    fused = tf.FusedBeamformer(_port(jt), tile_d=8)
+    assert fused.TK <= jt.W.shape[1]
     got = _np(fused(torch.from_numpy(frames)))
     np.testing.assert_allclose(got, ref, rtol=1e-4, atol=1e-9)
     np.testing.assert_allclose(got, jfused, rtol=1e-4, atol=1e-9)
@@ -60,8 +75,7 @@ def test_fused_matches_jax(tiny_cfg, rng, algorithm, window):
 def test_fused_single_frame(tiny_cfg, rng):
     frame = synth_frame(tiny_cfg, rng)
     jt = jb.make_lerp_tables(tiny_cfg)
-    got = tf.FusedBeamformer(_port(jt), tile_d=8, chunk_b=2)(
-        torch.from_numpy(frame))
+    got = tf.FusedBeamformer(_port(jt), tile_d=8)(torch.from_numpy(frame))
     assert got.shape == (tiny_cfg.max_res_x, tiny_cfg.max_res_y)
     ref = np.asarray(jb.steered_power(frame, jt), np.float64)
     np.testing.assert_allclose(_np(got), ref, rtol=1e-4, atol=1e-9)
@@ -69,66 +83,91 @@ def test_fused_single_frame(tiny_cfg, rng):
 
 @pytest.mark.parametrize("algorithm", ["lerp", "hybrid"])
 def test_dense_matches_both_jax_variants(tiny_cfg, rng, algorithm):
-    """The dense entry covers K2 and K3: it matches the JAX full variant
-    and the chunked-T one (``force_tchunk``), hybrid's cross-chunk
-    corrections included."""
+    """The degenerate plan (all T taps from base 0) covers K2 and K3: it
+    matches the JAX full variant and the chunked-T one (``force_tchunk``),
+    hybrid's cross-chunk corrections included, and so do the planned
+    windows."""
     frames = _frames(tiny_cfg, rng, n=5)
     jt = jb.make_tables(tiny_cfg, algorithm, cache=False)
     full = jp.FusedBeamformer(jt, tile_d=8, chunk_b=2)
     tch = jp.FusedBeamformer(jt, force_tchunk=True)
     assert full.variant == "full" and tch.variant == "tchunk"
-    got = _np(tf.FusedBeamformer(_port(jt))(torch.from_numpy(frames)))
+    fused = tf.FusedBeamformer(_port(jt))
+    dense = _dense_power(fused, frames)
+    planned = _np(fused(torch.from_numpy(frames)))
     for jf in (full, tch):
-        np.testing.assert_allclose(got, np.asarray(jf(frames), np.float64),
-                                   rtol=1e-4, atol=1e-9)
+        want = np.asarray(jf(frames), np.float64)
+        for got in (dense, planned):
+            np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-9)
+
+
+def _sparse_taps(rng, run, D=37, T=23, M=8):
+    """(D, T, M) weights with one run of ``run`` nonzero taps at a random
+    offset per (direction, mic)."""
+    W = np.zeros((D, T, M), np.float32)
+    for d in range(D):
+        for m in range(M):
+            t0 = rng.integers(0, T - run + 1)
+            W[d, t0:t0 + run, m] = rng.standard_normal(run)
+    return W
 
 
 def test_window_plan_matches_jax_at_align_8(rng):
-    """At Mosaic's alignment 8 the port's plan is the JAX plan, with the
-    JAX test's invariants (``test_pallas.py:40-59``)."""
-    D, T, M, tile_d = 37, 23, 8, 16
-    W = np.zeros((D, T, M), np.float32)
-    for d in range(D):
-        for m in range(M):
-            t0 = rng.integers(0, T - 2)
-            W[d, t0:t0 + 2, m] = rng.standard_normal(2)
-    bases, Tw, T_pad = tf._window_plan(W, tile_d, align=8)
+    """The JAX plan is the port's rounded out to Mosaic's alignment 8
+    (``test_pallas.py:40-59``): Tw and the tap axis to the multiple of 8
+    that leaves 7 spare taps, each unclipped base down to a multiple of 8."""
+    W, tile_d = _sparse_taps(rng, 2), 16
+    T = W.shape[1]
+    bases, Tw = tf._window_plan(W, tile_d)
     jbases, jTw, jT_pad = jp._window_plan(W, tile_d)
-    np.testing.assert_array_equal(bases, jbases)
-    assert (Tw, T_pad) == (jTw, jT_pad)
-    assert Tw % 8 == 0 and T_pad % 8 == 0 and T_pad >= T + 7
-    assert (bases % 8 == 0).all()
+    assert jTw == tf._round_up(Tw + 7, 8)
+    assert jT_pad == tf._round_up(T + 7, 8)
+    unclipped = bases <= jT_pad - jTw
+    assert unclipped.mean() > 0.5
+    np.testing.assert_array_equal(jbases[unclipped],
+                                  (bases // 8 * 8)[unclipped])
 
 
-@pytest.mark.parametrize("align", [1, 8])
-def test_window_plan_invariants(rng, align):
-    """Windows cover every nonzero tap and stay in range, for arbitrary
-    sparsity; alignment 1 (the CUDA plan) never widens them."""
-    D, T, M, tile_d = 37, 23, 8, 16
-    W = np.zeros((D, T, M), np.float32)
-    for d in range(D):
-        for m in range(M):
-            t0 = rng.integers(0, T - 3)
-            W[d, t0:t0 + 3, m] = rng.standard_normal(3)
-    bases, Tw, T_pad = tf._window_plan(W, tile_d, align=align)
-    assert (bases >= 0).all() and (bases + Tw <= T_pad).all()
+@pytest.mark.parametrize("run", [1, 8])
+def test_window_plan_invariants(rng, run):
+    """Windows cover every nonzero tap and stay in range, for runs of
+    ``run`` nonzero taps at random offsets, and are never wider than the
+    JAX plan's."""
+    W, tile_d = _sparse_taps(rng, run), 16
+    T = W.shape[1]
+    bases, Tw = tf._window_plan(W, tile_d)
+    assert (bases >= 0).all() and (bases + Tw <= T).all()
     d_idx, t_idx, m_idx = np.nonzero(W)
     tl = d_idx // tile_d
     assert (bases[tl, m_idx] <= t_idx).all()
     assert (t_idx < bases[tl, m_idx] + Tw).all()
-    if align == 1:
-        assert T_pad == T and Tw <= tf._window_plan(W, tile_d, align=8)[1]
+    assert Tw <= jp._window_plan(W, tile_d)[1]
+
+
+def test_window_plan_degenerates_to_dense(rng):
+    """A tile whose taps spread over all T gets the dense plan: Tw = T and
+    every base 0, and the planned weights are the tables' taps."""
+    D, T, M, tile_d = 16, 11, 4, 8
+    W = np.zeros((D, T, M), np.float32)
+    W[:, 0, :] = rng.standard_normal((D, M))
+    W[3, T - 1, 2] = 1.0
+    bases, Tw = tf._window_plan(W, tile_d)
+    assert Tw == T and (bases == 0).all()
+    w = tf._prep_weights(torch.from_numpy(W), torch.from_numpy(bases), Tw,
+                         tile_d, D, torch.float32)
+    np.testing.assert_array_equal(
+        w.numpy(), W.transpose(2, 1, 0).reshape(M * T, D))
 
 
 @pytest.mark.parametrize("tile_d", [8, 16, 32])
 @pytest.mark.parametrize("algorithm", ["lerp", "hybrid", "truncated"])
 def test_window_variant_cuts_taps(tiny_cfg, rng, algorithm, tile_d):
-    """The windowed entry point at every direction tile: fewer taps than
-    dense where the tile's delays spread little, the same power."""
+    """The planned windows at every direction tile: fewer taps than T
+    where the tile's delays spread little, the same power."""
     frames = _frames(tiny_cfg, rng, n=3)
     jt = jb.make_tables(tiny_cfg, algorithm, cache=False)
     ref = np.asarray(jb.steered_power(frames, jt), np.float64)
-    win = tf.FusedBeamformer(_port(jt), tile_d=tile_d, window=True)
+    win = tf.FusedBeamformer(_port(jt), tile_d=tile_d)
     assert win.TK <= jt.W.shape[1]
     if tile_d == 8:
         assert win.TK < jt.W.shape[1]
@@ -144,7 +183,7 @@ def test_high_mode_within_2e5_of_exact(tiny_cfg, rng):
                        np.float64)
     jt = jb.make_tables(tiny_cfg.replace(matmul_precision="high"), "lerp",
                         cache=False)
-    fused = tf.FusedBeamformer(_port(jt), tile_d=8, chunk_b=2)
+    fused = tf.FusedBeamformer(_port(jt), tile_d=8)
     assert fused.mode == "high" and fused.plane_dtype == torch.float32
     got = _np(fused(torch.from_numpy(frames)))
     assert np.abs(got - exact).max() / exact.max() < 2e-5
@@ -162,29 +201,30 @@ def test_bf16_tables_within_bf16_class(tiny_cfg, rng):
     jt = jb.make_tables(cfg_bf, "lerp", cache=False)
     jgot = np.asarray(jp.FusedBeamformer(jt, tile_d=8, chunk_b=2)(frames),
                       np.float64)
-    for window in (False, True):
-        fused = tf.FusedBeamformer(_port(jt), tile_d=8, chunk_b=2,
-                                   window=window)
-        assert fused.mode == "bf16" and fused.Wp.dtype == torch.bfloat16
-        got = _np(fused(torch.from_numpy(frames)))
-        assert np.abs(got - exact).max() / exact.max() < 3e-2
-        for b in range(len(frames)):
-            assert got[b].argmax() == exact[b].argmax()
-        np.testing.assert_allclose(got, jgot, rtol=1e-4, atol=1e-9)
+    fused = tf.FusedBeamformer(_port(jt), tile_d=8)
+    assert fused.mode == "bf16" and fused.Wp.dtype == torch.bfloat16
+    got = _np(fused(torch.from_numpy(frames)))
+    assert np.abs(got - exact).max() / exact.max() < 3e-2
+    for b in range(len(frames)):
+        assert got[b].argmax() == exact[b].argmax()
+    np.testing.assert_allclose(got, jgot, rtol=1e-4, atol=1e-9)
 
 
 @pytest.mark.parametrize("B", [1, 3, 5])
 def test_batch_padding(tiny_cfg, rng, B):
-    """B not a multiple of chunk_b pads to one; every frame's map equals
+    """The JAX kernel pads B to a multiple of its ``chunk_b``; the port's
+    block holds one frame and takes B as it is.  Both give every frame
     its single-frame map."""
     frames = _frames(tiny_cfg, rng, n=B)
-    t = tb.make_tables(tiny_cfg, "hybrid", cache=False)
-    fused = tf.FusedBeamformer(t, tile_d=16, chunk_b=2)
+    jt = jb.make_tables(tiny_cfg, "hybrid", cache=False)
+    jgot = np.asarray(jp.FusedBeamformer(jt, tile_d=8, chunk_b=2)(frames),
+                      np.float64)
+    fused = tf.FusedBeamformer(_port(jt), tile_d=16)
     s, corr = fused.kernel_inputs(torch.from_numpy(frames))
-    assert s.shape[0] == B + B % 2 and corr.shape == (s.shape[0], fused.cc,
-                                                      fused.DP)
+    assert s.shape[0] == B and corr.shape == (B, fused.cc, fused.DP)
     got = _np(fused(torch.from_numpy(frames)))
     assert got.shape == (B, tiny_cfg.max_res_x, tiny_cfg.max_res_y)
+    np.testing.assert_allclose(got, jgot, rtol=1e-4, atol=1e-9)
     for b in range(B):
         one = _np(fused(torch.from_numpy(frames[b])))
         np.testing.assert_allclose(got[b], one, rtol=1e-6, atol=1e-12)
@@ -204,38 +244,38 @@ def test_wider_inputs_slice_to_active_mics(tiny_cfg, rng):
 @pytest.mark.parametrize("window", [False, True], ids=["dense", "window"])
 def test_reference_shape_parity(window):
     """``Config()`` (256 mics, 57x32 grid, T=49), lerp, 2 frames: the
-    port's path against JAX ``steered_power`` (``test_pallas.py:138-158``)."""
+    port's planned windows, and the degenerate dense plan, against JAX
+    ``steered_power`` (``test_pallas.py:138-158``)."""
     cfg = Config()
     jt = jb.make_tables(zj.Config(), "lerp")
     rng = np.random.default_rng(7)
     frames = (rng.standard_normal(
         (2, cfg.n_microphones, cfg.n_samples)) * 0.1).astype(np.float32)
     ref = np.asarray(jb.steered_power(frames, jt), np.float64)
-    fused = tf.FusedBeamformer(_port(jt), window=window)
-    if window:
-        # the tile-32 windows the kernel plans at alignment 1
-        assert fused.variant == "window" and fused.TK < 20
-    np.testing.assert_allclose(_np(fused(torch.from_numpy(frames))), ref,
-                               rtol=1e-4, atol=1e-12)
+    fused = tf.FusedBeamformer(_port(jt))
+    # the tile-32 windows the kernel plans at alignment 1
+    assert fused.TK < 20
+    got = (_np(fused(torch.from_numpy(frames))) if window
+           else _dense_power(fused, frames))
+    np.testing.assert_allclose(got, ref, rtol=1e-4, atol=1e-12)
 
 
 def test_plan_fits_every_preset_shape():
-    """Every preset and algorithm has a Hopper plan (a K-looped kernel
-    fits where the TPU needed a VMEM fallback), and the plan's arithmetic
-    matches the kernel's limits."""
+    """Every preset and algorithm has a Hopper plan at every direction
+    tile, up to the dense plan's T taps (a K-looped kernel fits where the
+    TPU needed a VMEM fallback), and the plan's arithmetic matches the
+    kernel's limits."""
     for cfg in (Config.tiny(), Config.northstar(), Config()):
         for algo in ("lerp", "hybrid"):
             t = tb.make_tables(cfg, algo, cache=False)
             D, T, M = t.W.shape
             for tile_d in tf.TILE_DS:
-                for chunk_b in tf.FRAME_TILES:
-                    NI, MG, TKC, smem = tf.plan(T, cfg.n_samples, M, tile_d,
-                                                chunk_b)
-                    assert 32 * NI >= min(cfg.n_samples, 256)
-                    assert 1 <= MG <= M and 1 <= TKC <= tf.TAP_CHUNK
-                    assert smem <= tf.SMEM_MAX
+                NI, MG, TKC, smem = tf.plan(T, cfg.n_samples, M, tile_d)
+                assert 32 * NI >= min(cfg.n_samples, 256)
+                assert 1 <= MG <= M and 1 <= TKC <= tf.TAP_CHUNK
+                assert smem <= tf.SMEM_MAX
     with pytest.raises(ValueError, match="no shared-memory plan"):
-        tf.plan(200000, 256, 256, 32, 1)
+        tf.plan(200000, 256, 256, 32)
 
 
 def test_cpu_tensors_take_the_plain_version(tiny_cfg, rng, monkeypatch):
@@ -262,5 +302,6 @@ def test_cuda_request_raises_without_gpu(tiny_cfg):
     fused = tf.FusedBeamformer(t)
     s, corr = fused.kernel_inputs(torch.zeros(1, 16, 64))
     with pytest.raises(ValueError, match="unsupported device"):
-        tf.fused_power(s.to("meta"), fused.Wp.to("meta"), None,
-                       tau_min=0, tile_d=32, inv=1.0)
+        tf.fused_power(s.to("meta"), fused.Wp.to("meta"),
+                       fused.bases.to("meta"), None, tau_min=0, tile_d=32,
+                       inv=1.0)

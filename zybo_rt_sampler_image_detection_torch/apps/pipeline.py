@@ -160,9 +160,8 @@ def _batched_power_program(tables, n_full):
 
     The JAX package builds it from ``_power_program_parts`` so that the
     tables enter its jit as arguments; PyTorch runs eagerly, so the
-    policy's callable serves as it is (both fused variants, full and
-    windowed, take the same call), and the input buffer the stage reuses
-    takes the place of the jit's input donation."""
+    policy's callable serves as it is, and the input buffer the stage
+    reuses takes the place of the jit's input donation."""
     fn = default_power_fn(tables)
     return lambda frames: fn(_pad_full(frames, n_full))
 
@@ -244,8 +243,7 @@ class BatchedStage(Stage):
 
     def __init__(self, name: str, receiver: Receiver,
                  metrics: PipelineMetrics, batch: int, channels: int = 0,
-                 transfer: str = "f32", max_rate: float = 0.0,
-                 device="cuda"):
+                 transfer: str = "f32", device="cuda"):
         super().__init__(name, metrics)
         if batch > receiver.ring_frames:
             # fail fast: read_batch would raise inside the stage thread,
@@ -263,12 +261,6 @@ class BatchedStage(Stage):
         # device programs upcast to f32 on arrival.  Default: exact f32.
         self.transfer_dtype = {"f32": torch.float32,
                                "f16": torch.float16}[transfer]
-        # max_rate (frames/s, 0 = line rate): throttle the stage so it
-        # deliberately lets the ring overwrite frames it skips (counted
-        # in `skipped`), for display consumers that need less than line
-        # rate
-        self.max_rate = float(max_rate)
-        self._rate_t0 = None
         self.device = beamform.resolve_device(device)
         self._slots = None
         self._next_slot = 0
@@ -343,14 +335,6 @@ class BatchedStage(Stage):
         next_seq = self.receiver.stream_anchor_seq
         pending = None
         while not self.stop_event.is_set():
-            if self.max_rate and self._rate_t0 is not None:
-                ahead = (self.processed / self.max_rate
-                         - (time.perf_counter() - self._rate_t0))
-                if ahead > 0.0:
-                    if pending is not None:
-                        self._finish(pending)   # sync while throttled
-                        pending = None
-                    time.sleep(min(ahead, 0.5))
             try:
                 batch, first, skipped = self.receiver.read_batch(
                     self.batch, next_seq, timeout=0.5,
@@ -361,8 +345,6 @@ class BatchedStage(Stage):
                     pending = None
                 continue
             next_seq = first + self.batch
-            if self._rate_t0 is None:
-                self._rate_t0 = time.perf_counter()
             t0 = time.perf_counter()
             host, done = self._dispatch(batch)   # copy + launch, no wait
             if pending is not None:
@@ -394,10 +376,9 @@ class BatchedHeatmapProducer(BatchedStage):
     def __init__(self, receiver: Receiver, tables, q_power: queue.Queue,
                  metrics: PipelineMetrics, batch: int = 16,
                  power_fn=None, sink=None, channels: int = 0,
-                 transfer: str = "f32", max_rate: float = 0.0):
+                 transfer: str = "f32"):
         super().__init__("heatmap_batched", receiver, metrics, batch,
-                         channels, transfer, max_rate=max_rate,
-                         device=tables.device)
+                         channels, transfer, device=tables.device)
         self.tables = tables
         self.q_power = q_power
         self.sink = sink or self._default_sink
@@ -492,17 +473,15 @@ class Pipeline:
         return s
 
     def make_heatmap_batched(self, batch: int = 16, sink=None,
-                             channels: int = 0, transfer: str = "f32",
-                             max_rate: float = 0.0):
+                             channels: int = 0, transfer: str = "f32"):
         """Build (but don't start) the full-line-rate stage, so callers can
         :meth:`BatchedHeatmapProducer.warmup` before any packets flow and
-        :meth:`run_stage` it after :meth:`connect`.  ``max_rate``
-        (frames/s) throttles it for display consumers."""
+        :meth:`run_stage` it after :meth:`connect`."""
         return BatchedHeatmapProducer(self.receiver, self.tables,
                                       self.q_power, self.metrics,
                                       batch=batch, power_fn=self._power_fn,
                                       sink=sink, channels=channels,
-                                      transfer=transfer, max_rate=max_rate)
+                                      transfer=transfer)
 
     def run_stage(self, s):
         self.stages.append(s)
@@ -510,11 +489,10 @@ class Pipeline:
         return s
 
     def start_heatmap_batched(self, batch: int = 16, sink=None,
-                              warmup: bool = True, max_rate: float = 0.0):
+                              warmup: bool = True):
         """Full-line-rate variant of :meth:`start_heatmap`: every frame
         beamformed in K-frame device batches."""
-        s = self.make_heatmap_batched(batch=batch, sink=sink,
-                                      max_rate=max_rate)
+        s = self.make_heatmap_batched(batch=batch, sink=sink)
         if warmup:
             s.warmup()
         return self.run_stage(s)

@@ -14,19 +14,17 @@ memory and reads every shifted operand from it, so the delay lines and
 the (B, D, N) beams never reach device memory.  The source note in the
 ``.cu`` says what bounds it on the H100 and how the design answers.
 
-Two entry points over one kernel body:
-
-* **dense** — K runs over all ``T*M`` taps (``base = 0``);
-* **window** — K runs over a per-(direction tile, mic) window of ``Tw``
-  taps (``base`` from :func:`_window_plan`), for shapes whose tiles
-  touch few of the T taps.
+K runs over a per-(direction tile, mic) window of ``Tw`` taps starting
+at ``base`` (:func:`_window_plan`).  Where a tile's taps spread over all
+T, the plan degenerates to ``Tw = T`` and ``base = 0``: the dense
+contraction of the TPU's full and chunked-T kernels.
 
 Layout the kernel takes (the forward below builds it):
 
 * ``s``      (BP, M, N)      active-mic signals, plane dtype;
-* ``w``      (M*TK, DP)      weights, row ``m*TK + j`` (TK = T dense,
-                             Tw window), directions padded to DP;
-* ``bases``  (DP/tile_d, M)  int32 first tap of each window (window only);
+* ``w``      (M*Tw, DP)      weights, row ``m*Tw + j``, directions padded
+                             to DP;
+* ``bases``  (DP/tile_d, M)  int32 first tap of each window;
 * ``corr``   (BP, cc, DP)    float32 boundary corrections, or None;
 * output     (BP, DP)        float32 power.
 
@@ -38,9 +36,9 @@ off), as the JAX package left it to XLA.
 
 Ported from ``zybo_rt_sampler_image_detection_tpu/ops/pallas_kernels.py``
 (``FusedBeamformer``, ``_fused_forward``, ``_fused_forward_tchunk``,
-``_fused_forward_window``, ``_window_plan``, ``_prep_corr``): the full
-and chunked-T variants are one K-looped kernel here, and the v5e VMEM
-planner is replaced by a plan for one H100 block's shared memory.
+``_fused_forward_window``, ``_window_plan``, ``_prep_corr``): the full,
+chunked-T and windowed variants are one K-looped kernel here, and the v5e
+VMEM planner is replaced by a plan for one H100 block's shared memory.
 """
 
 from __future__ import annotations
@@ -56,7 +54,6 @@ from .beamform import delay_lines, set_fp32_matmul
 
 # kernel constants of csrc/time_power.cu
 TILE_DS = (8, 16, 32)           # directions per block (8 per warp)
-FRAME_TILES = (1, 2)            # frames per block (``chunk_b``)
 TAP_CHUNK = 64                  # taps of one weight tile (TKC cap)
 K_GROUP = 256                   # weight rows (k steps) per staged mic group
 SMEM_MAX = 232448               # dynamic shared memory one H100 block can opt into
@@ -66,20 +63,19 @@ def _round_up(x: int, m: int) -> int:
     return -(-x // m) * m
 
 
-def _window_plan(Wnp: np.ndarray, tile_d: int, align: int = 1):
-    """Per-(direction tile, mic) tap windows for the windowed entry point.
+def _window_plan(Wnp: np.ndarray, tile_d: int):
+    """Per-(direction tile, mic) tap windows of the kernel.
 
     Within one direction tile each mic's nonzero taps span a narrow
     window (delays vary smoothly over adjacent directions), so the tile's
-    contraction can run over a compact window of uniform width Tw = the
-    largest spread instead of all T taps.
+    contraction runs over a compact window of uniform width Tw = the
+    largest spread instead of all T taps.  The JAX package rounds bases
+    and Tw to Mosaic's sublane multiple of 8 (``pallas_kernels.py:335-339``);
+    the CUDA kernel takes any offset, so the port does not.
 
-    ``align`` rounds the bases down and Tw and the tap axis up to its
-    multiple: 8 reproduces the JAX package's plan (Mosaic's sublane rule,
-    ``pallas_kernels.py:335-339``); the CUDA kernel takes any offset, so
-    the port plans at 1.  Returns ``(bases (n_tiles, M) int32, Tw,
-    T_pad)``; every window covers all nonzero taps of its (tile, mic) and
-    lies in ``[0, T_pad)``.
+    Returns ``(bases (n_tiles, M) int32, Tw)``; every window covers all
+    nonzero taps of its (tile, mic) and lies in ``[0, T)``.  Where the
+    spread is T, Tw = T and every base is 0: the dense contraction.
     """
     D, T, M = Wnp.shape
     DP = _round_up(D, tile_d)
@@ -92,11 +88,9 @@ def _window_plan(Wnp: np.ndarray, tile_d: int, align: int = 1):
     tmax = np.concatenate([tmax, np.full((pad, M), -1)], 0)
     tmin_t = tmin.reshape(DP // tile_d, tile_d, M).min(axis=1)
     tmax_t = tmax.reshape(DP // tile_d, tile_d, M).max(axis=1)
-    raw = max(int(np.maximum(tmax_t - tmin_t + 1, 0).max()), 1)
-    Tw = _round_up(raw + align - 1, align)
-    T_pad = _round_up(T + align - 1, align)
-    bases = (np.clip(tmin_t, 0, T_pad - Tw) // align * align).astype(np.int32)
-    return bases, Tw, T_pad
+    Tw = max(int(np.maximum(tmax_t - tmin_t + 1, 0).max()), 1)
+    bases = np.clip(tmin_t, 0, T - Tw).astype(np.int32)
+    return bases, Tw
 
 
 def _prep_corr_weights(Wc: Optional[torch.Tensor], cc: int, DP: int):
@@ -123,15 +117,8 @@ def _prep_corr(sf: torch.Tensor, corr_w, corr_js, cc: int, DP: int):
     return (sj.reshape(BP, -1) @ corr_w).reshape(BP, cc, DP)
 
 
-def _prep_weights_full(W: torch.Tensor, DP: int, dtype) -> torch.Tensor:
-    """(D, T, M) -> (M*T, DP): row m*T + j holds tap j of mic m."""
-    D, T, M = W.shape
-    wp = F_.pad(W.float(), (0, 0, 0, 0, 0, DP - D))
-    return wp.permute(2, 1, 0).reshape(M * T, DP).to(dtype).contiguous()
-
-
-def _prep_weights_window(W: torch.Tensor, bases: torch.Tensor, Tw: int,
-                         tile_d: int, DP: int, dtype) -> torch.Tensor:
+def _prep_weights(W: torch.Tensor, bases: torch.Tensor, Tw: int,
+                  tile_d: int, DP: int, dtype) -> torch.Tensor:
     """(D, T, M) -> (M*Tw, DP): row m*Tw + j holds, for each direction d,
     ``W[d, bases[d // tile_d, m] + j, m]`` (0 past the last tap)."""
     D, T, M = W.shape
@@ -144,7 +131,7 @@ def _prep_weights_window(W: torch.Tensor, bases: torch.Tensor, Tw: int,
     return comp.permute(3, 2, 0, 1).reshape(M * Tw, DP).to(dtype).contiguous()
 
 
-def plan(TK: int, N: int, M: int, tile_d: int, chunk_b: int):
+def plan(TK: int, N: int, M: int, tile_d: int):
     """The Hopper plan of one block: ``(NI, MG, TKC, smem_bytes)``.
 
     NI: samples per lane and pass (a warp covers 32*NI samples; longer
@@ -158,18 +145,18 @@ def plan(TK: int, N: int, M: int, tile_d: int, chunk_b: int):
 
     def smem(mg):
         LP = 32 * NI + TK - 1
-        return 4 * (_round_up(chunk_b * mg * LP, 4) + mg * TKC * tile_d)
+        return 4 * (_round_up(mg * LP, 4) + mg * TKC * tile_d)
 
     while MG > 1 and smem(MG) > SMEM_MAX:
         MG //= 2
     if smem(MG) > SMEM_MAX:
         raise ValueError(f"time_power: no shared-memory plan for TK={TK} "
-                         f"N={N} tile_d={tile_d} chunk_b={chunk_b}")
+                         f"N={N} tile_d={tile_d}")
     return NI, MG, TKC, smem(MG)
 
 
-def fused_power_plain(s, w, corr, *, bases=None, tau_min: int,
-                      tile_d: int, inv: float) -> torch.Tensor:
+def fused_power_plain(s, w, bases, corr, *, tau_min: int, tile_d: int,
+                      inv: float) -> torch.Tensor:
     """Plain-torch version of the kernel, same inputs and layout, FP32.
 
     bf16 operands are widened to FP32 first, which is the kernel's
@@ -179,21 +166,17 @@ def fused_power_plain(s, w, corr, *, bases=None, tau_min: int,
     K, DP = w.shape
     TK = K // M
     sf, wf = s.float(), w.float()
-    if bases is None:
-        sdel = delay_lines(sf, tau_min, TK, stack_axis=-2)    # (BP, M, TK, N)
-        beams = sdel.reshape(BP, K, N).transpose(1, 2) @ wf  # (BP, N, DP)
-    else:
-        T_all = int(bases.max()) + TK
-        full = delay_lines(sf, tau_min, T_all, stack_axis=-2)  # (BP, M, T_all, N)
-        jj = torch.arange(TK, device=s.device)
-        tiles = []
-        for i in range(DP // tile_d):
-            idx = (bases[i].long()[:, None] + jj[None, :])      # (M, TK)
-            win = torch.gather(full, 2, idx[None, :, :, None].expand(
-                BP, M, TK, N))
-            tiles.append(win.reshape(BP, K, N).transpose(1, 2)
-                         @ wf[:, i * tile_d:(i + 1) * tile_d])
-        beams = torch.cat(tiles, dim=2)
+    T_all = int(bases.max()) + TK
+    full = delay_lines(sf, tau_min, T_all, stack_axis=-2)  # (BP, M, T_all, N)
+    jj = torch.arange(TK, device=s.device)
+    tiles = []
+    for i in range(DP // tile_d):
+        idx = (bases[i].long()[:, None] + jj[None, :])      # (M, TK)
+        win = torch.gather(full, 2, idx[None, :, :, None].expand(
+            BP, M, TK, N))
+        tiles.append(win.reshape(BP, K, N).transpose(1, 2)
+                     @ wf[:, i * tile_d:(i + 1) * tile_d])
+    beams = torch.cat(tiles, dim=2)                          # (BP, N, DP)
     if corr is not None:
         cc = corr.shape[1]
         beams = torch.cat([beams[:, :cc] - corr, beams[:, cc:]], dim=1)
@@ -206,16 +189,11 @@ def _lib():
     lib = _build.load("time_power")
     if not getattr(lib, "_zrt_typed", False):
         p, i = ctypes.c_void_p, ctypes.c_int
-        for fn in (lib.zrt_time_power_dense, lib.zrt_time_power_window):
-            fn.restype = i
-        lib.zrt_time_power_dense.argtypes = [
-            p, p, p, p,                            # s w corr out
-            i, i, i, i, i, i, i, i,                # BP M N TK DP tile_d tau_min cc
-            i, i, i, i, ctypes.c_float, i, p]      # MG TKC NI BT inv bf16 stream
-        lib.zrt_time_power_window.argtypes = [
+        lib.zrt_time_power.restype = i
+        lib.zrt_time_power.argtypes = [
             p, p, p, p, p,                         # s w bases corr out
-            i, i, i, i, i, i, i, i,
-            i, i, i, i, ctypes.c_float, i, p]
+            i, i, i, i, i, i, i, i,                # BP M N TK DP tile_d tau_min cc
+            i, i, i, ctypes.c_float, i, p]         # MG TKC NI inv bf16 stream
         lib.zrt_cuda_error_string.restype = ctypes.c_char_p
         lib.zrt_cuda_error_string.argtypes = [i]
         lib._zrt_typed = True
@@ -227,16 +205,15 @@ def _check(cond: bool, msg: str) -> None:
         raise ValueError(f"fused_power: {msg}")
 
 
-def fused_power(s, w, corr, *, bases=None, tau_min: int, tile_d: int,
-                chunk_b: int = 1, inv: float) -> torch.Tensor:
+def fused_power(s, w, bases, corr, *, tau_min: int, tile_d: int,
+                inv: float) -> torch.Tensor:
     """Fused time-domain power, (BP, DP) float32.
 
     On CPU tensors this is :func:`fused_power_plain`.  On CUDA tensors it
-    launches the ``sm_90a`` kernel — the dense entry point, or the
-    windowed one when ``bases`` is given — or raises; there is no
-    fallback.  ``fused_power.launches`` counts the kernel launches."""
+    launches the ``sm_90a`` kernel or raises; there is no fallback.
+    ``fused_power.launches`` counts the kernel launches."""
     if s.device.type == "cpu":
-        return fused_power_plain(s, w, corr, bases=bases, tau_min=tau_min,
+        return fused_power_plain(s, w, bases, corr, tau_min=tau_min,
                                  tile_d=tile_d, inv=inv)
     _check(s.device.type == "cuda", f"unsupported device {s.device}")
     dev = s.device
@@ -250,9 +227,9 @@ def fused_power(s, w, corr, *, bases=None, tau_min: int, tile_d: int,
     TK = K // M
     _check(tile_d in TILE_DS and DP % tile_d == 0,
            f"tile_d must be one of {TILE_DS} and divide DP")
-    _check(chunk_b in FRAME_TILES and BP % chunk_b == 0,
-           f"chunk_b must be one of {FRAME_TILES} and divide BP")
-    tensors = [s, w]
+    _check(bases.dtype == torch.int32 and bases.shape == (DP // tile_d, M),
+           "bases must be int32 (DP/tile_d, M)")
+    tensors = [s, w, bases]
     cc = 0
     if corr is not None:
         _check(corr.dtype == torch.float32 and corr.ndim == 3
@@ -260,31 +237,20 @@ def fused_power(s, w, corr, *, bases=None, tau_min: int, tile_d: int,
                and corr.shape[1] <= N, "corr must be float32 (BP, cc<=N, DP)")
         cc = corr.shape[1]
         tensors.append(corr)
-    if bases is not None:
-        _check(bases.dtype == torch.int32
-               and bases.shape == (DP // tile_d, M),
-               "bases must be int32 (DP/tile_d, M)")
-        tensors.append(bases)
     _check(all(t.device == dev for t in tensors),
            "all tensors must be on one device")
     _check(all(t.is_contiguous() for t in tensors),
            "all tensors must be contiguous")
-    NI, MG, TKC, _ = plan(TK, N, M, tile_d, chunk_b)
+    NI, MG, TKC, _ = plan(TK, N, M, tile_d)
     lib = _lib()
     out = torch.empty((BP, DP), dtype=torch.float32, device=dev)
     cptr = corr.data_ptr() if corr is not None else None
-    shape = (BP, M, N, TK, DP, tile_d, int(tau_min), cc, MG, TKC, NI,
-             chunk_b, float(inv), int(s.dtype == torch.bfloat16))
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        if bases is None:
-            err = lib.zrt_time_power_dense(
-                s.data_ptr(), w.data_ptr(), cptr, out.data_ptr(), *shape,
-                stream)
-        else:
-            err = lib.zrt_time_power_window(
-                s.data_ptr(), w.data_ptr(), bases.data_ptr(), cptr,
-                out.data_ptr(), *shape, stream)
+        err = lib.zrt_time_power(
+            s.data_ptr(), w.data_ptr(), bases.data_ptr(), cptr,
+            out.data_ptr(), BP, M, N, TK, DP, tile_d, int(tau_min), cc, MG,
+            TKC, NI, float(inv), int(s.dtype == torch.bfloat16), stream)
     if err != 0:
         raise RuntimeError(f"time_power kernel launch failed: "
                            f"{lib.zrt_cuda_error_string(err).decode()}")
@@ -296,7 +262,7 @@ fused_power.launches = 0
 
 
 class FusedBeamformer:
-    """Precomputed padded weights + the fused time-domain power kernel.
+    """Precomputed windowed weights + the fused time-domain power kernel.
 
     Usage::
 
@@ -304,20 +270,15 @@ class FusedBeamformer:
         power = fused(frames)                   # (B, X, Y) or (X, Y)
 
     ``frames`` are ``(M, N)`` or ``(B, C, N)`` tensors or numpy arrays.
-    ``tile_d`` directions (8/16/32) and ``chunk_b`` frames (1/2) make one
-    block; batches pad to a multiple of ``chunk_b``.  ``window=True``
-    selects the windowed entry point (:func:`_window_plan` at
-    ``tile_d``); ``variant`` is ``"full"`` or ``"window"``.  ``mode``
-    follows the tables: ``bf16`` for bf16 weights, else ``high`` or
-    ``f32`` (the same FP32 arithmetic).
+    ``tile_d`` directions (8/16/32) make one block, with one frame; the
+    tap windows are planned at ``tile_d`` (:func:`_window_plan`).
+    ``mode`` follows the tables: ``bf16`` for bf16 weights, else ``high``
+    or ``f32`` (the same FP32 arithmetic).
     """
 
-    def __init__(self, t, tile_d: int = 32, chunk_b: int = 1,
-                 window: Optional[bool] = None):
+    def __init__(self, t, tile_d: int = 32):
         if tile_d not in TILE_DS:
             raise ValueError(f"tile_d must be one of {TILE_DS}")
-        if chunk_b not in FRAME_TILES:
-            raise ValueError(f"chunk_b must be one of {FRAME_TILES}")
         self.t = t
         D, T, M = t.W.shape
         N = t.n_samples
@@ -327,25 +288,18 @@ class FusedBeamformer:
         self.mode = ("bf16" if self.plane_dtype == torch.bfloat16
                      else "high" if t.precision == "high" else "f32")
         self.D, self.T, self.M, self.N = D, T, M, N
-        self.tile_d, self.chunk_b = tile_d, chunk_b
+        self.tile_d = tile_d
         self.DP = _round_up(D, tile_d)
         tc = 0 if t.Wc is None else t.Wc.shape[2]
         self.cc = min(max(8, _round_up(tc, 8)), N)
         self.tau_min, self.corr_js = t.tau_min, t.corr_js
         self.res_x, self.res_y = t.res_x, t.res_y
-        self.variant = "window" if window else "full"
-        if self.variant == "window":
-            bases, Tw, _ = _window_plan(t.W.float().cpu().numpy(), tile_d)
-            self.bases = torch.from_numpy(bases).to(self.device)
-            self.TK = Tw
-            self.Wp = _prep_weights_window(t.W, self.bases, Tw, tile_d,
-                                           self.DP, self.plane_dtype)
-        else:
-            self.bases = None
-            self.TK = T
-            self.Wp = _prep_weights_full(t.W, self.DP, self.plane_dtype)
+        bases, self.TK = _window_plan(t.W.float().cpu().numpy(), tile_d)
+        self.bases = torch.from_numpy(bases).to(self.device)
+        self.Wp = _prep_weights(t.W, self.bases, self.TK, tile_d, self.DP,
+                                self.plane_dtype)
         # the Hopper plan; raises here, not at the first call, if no block fits
-        self.plan = plan(self.TK, N, M, tile_d, chunk_b)
+        self.plan = plan(self.TK, N, M, tile_d)
         self.corr_w = _prep_corr_weights(t.Wc, self.cc, self.DP)
         ident = torch.arange(M, device=self.device)
         # identity active-mic set -> slice the leading M rows, no gather
@@ -355,14 +309,10 @@ class FusedBeamformer:
 
     def kernel_inputs(self, signals: torch.Tensor):
         """The forward's prologue: (B, C, N) frames -> ``(s, corr)``, the
-        per-call kernel inputs (active-mic gather, batch padding to
-        ``chunk_b``, plane dtype, and the correction product)."""
-        B = signals.shape[0]
-        BP = _round_up(B, self.chunk_b)
+        per-call kernel inputs (active-mic gather, plane dtype, and the
+        correction product)."""
         sf = (signals[:, self.adaptive, :] if self.adaptive is not None
               else signals[:, :self.M, :]).float()
-        if BP != B:
-            sf = F_.pad(sf, (0, 0, 0, 0, 0, BP - B))
         s = sf.to(self.plane_dtype).contiguous()
         corr = _prep_corr(sf, self.corr_w, self.corr_js, self.cc, self.DP)
         return s, corr
@@ -374,8 +324,8 @@ class FusedBeamformer:
             signals = signals[None]
         B = signals.shape[0]
         s, corr = self.kernel_inputs(signals)
-        power = fused_power(s, self.Wp, corr, bases=self.bases,
+        power = fused_power(s, self.Wp, self.bases, corr,
                             tau_min=self.tau_min, tile_d=self.tile_d,
-                            chunk_b=self.chunk_b, inv=self.inv)
-        power = power[:B, :self.D].reshape(B, self.res_x, self.res_y)
+                            inv=self.inv)
+        power = power[:, :self.D].reshape(B, self.res_x, self.res_y)
         return power[0] if squeeze else power

@@ -7,30 +7,35 @@ kernels from the sources in this checkout.  Imports nothing of JAX.
 
 Phases (any failure raises, so the exit code is non-zero):
 
-1. Card and build: ``nvidia-smi`` name and power limit; both kernel
-   sources built by two ``nvcc`` processes started together, with the
-   ptxas register/spill report of the time-domain kernel.
+1. Card and build: ``nvidia-smi`` name and power limit; the three kernel
+   sources built by three ``nvcc`` processes started together, with the
+   ptxas register/spill reports of the time-domain and fd kernels.
 2. The fused equiv-power kernel (K1) against its plain torch version on
    the card, at ``Config()`` (256 mics, 57x32 grid) for lerp and hybrid,
    in modes f32/high/bf16, at B=1 and B=37, with CUDA-event times of both
    and of the plain version's ``torch.bmm`` pair alone.
-3. The fused time-domain kernel (K2/K3/K4: one kernel over planned tap
+3. The direction-innermost equiv kernel (K5, ``sweep="fd"``) against its
+   plain version and against K1 at ``Config()`` lerp and hybrid,
+   f32/high/bf16, B=1 and B=16, on the auto fd plan (more than one
+   frequency chunk), with CUDA-event times and the ``torch.bmm`` pair.
+4. The fused time-domain kernel (K2/K3/K4: one kernel over planned tap
    windows) against its plain version at ``Config()`` lerp and hybrid,
    f32/high/bf16, B=1 and B=16, and against the exact FP32 product, with
    CUDA-event times and the dense ``torch.matmul(W, Sdel)`` alone as a
    yardstick.
-4. The live slice end to end: the native emulator on loopback ->
-   ``Pipeline(..., power_backend="equiv_kernel", device="cuda")`` -> at
-   least 20 heatmaps, with K1's launch counter read around the run; one
-   received frame checked against the plain FP32 time-domain
+5. The live slice end to end: the native emulator on loopback ->
+   ``Pipeline(..., power_backend="equiv_kernel", device="cuda")``, then
+   ``Pipeline(..., power_fn=FusedEquivBeamformer(tables, sweep="fd"))`` ->
+   at least 20 heatmaps each, with the kernel's launch counter read around
+   the run; one received frame checked against the plain FP32 time-domain
    ``steered_power``; the auto policy at ``high`` must pick K1.
-5. Full rate end to end: the native emulator at line rate -> the batched
-   stage (K=16, 192 channels) through ``FusedBeamformer(tables)``, then
-   the auto policy's ``power_backend="equiv_kernel"``; each run must skip
-   no frame, lose no
-   packet, launch its kernel once per batch, and match the plain FP32
-   ``steered_power`` on one batch it received.
-6. Policy: bf16 tables outside the equiv bar select the fused time-domain
+6. Full rate end to end: the native emulator at line rate -> the batched
+   stage (K=16, 192 channels) through ``FusedBeamformer(tables)``, the
+   auto policy's ``power_backend="equiv_kernel"`` and
+   ``FusedEquivBeamformer(tables, sweep="fd")``; each run must skip no
+   frame, lose no packet, launch its kernel once per batch, and match the
+   plain FP32 ``steered_power`` on one batch it received.
+7. Policy: bf16 tables outside the equiv bar select the fused time-domain
    kernel, which launches.
 
 The line before the last is a JSON record of the kernels; the last line is
@@ -54,6 +59,8 @@ CSRC = "zybo_rt_sampler_image_detection_torch/ops/csrc"
 TPU_OPS = "zybo_rt_sampler_image_detection_tpu/ops"
 KERNEL_SOURCE = f"{CSRC}/equiv_power.cu"
 KERNEL_REPLACES = f"{TPU_OPS}/equiv_kernel.py:74"
+FD_SOURCE = f"{CSRC}/equiv_power_fd.cu"
+FD_REPLACES = f"{TPU_OPS}/equiv_kernel.py:198"
 TIME_SOURCE = f"{CSRC}/time_power.cu"
 # one kernel for K2 (:128), K3 (:212) and K4 (:363)
 TIME_REPLACES = [f"{TPU_OPS}/pallas_kernels.py:{n}" for n in (128, 212, 363)]
@@ -72,6 +79,15 @@ FP32_FLOPS = 67e12
 FULLRATE_BATCH = 16
 FULLRATE_CHANNELS = 192    # the 3 connected arrays of Config()
 FULLRATE_SECONDS = 4.0
+
+
+def zero_counts() -> None:
+    """Every kernel wrapper's launch count to 0, just before a path runs."""
+    from zybo_rt_sampler_image_detection_torch.ops import (
+        equiv_kernel as ek, fused_kernel as fk)
+
+    for wrapper in (ek.equiv_power, ek.equiv_power_fd, fk.fused_power):
+        wrapper.launches = 0
 
 
 def rel_err(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -110,6 +126,16 @@ def time_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
+def in_turns(plain, kern, iters: int) -> tuple:
+    """(kernel ms, plain ms), timed in turns: plain, kernel, kernel,
+    plain."""
+    p1 = time_ms(plain, iters)
+    k1 = time_ms(kern, iters)
+    k2 = time_ms(kern, iters)
+    p2 = time_ms(plain, iters)
+    return (k1 + k2) / 2, (p1 + p2) / 2
+
+
 def phase_card_and_build():
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -120,7 +146,7 @@ def phase_card_and_build():
           f"device {torch.cuda.get_device_name(0)}")
     from zybo_rt_sampler_image_detection_torch.ops import _build
 
-    names = ("equiv_power", "time_power")
+    names = ("equiv_power", "time_power", "equiv_power_fd")
     t0 = time.perf_counter()
     # one nvcc per source, started together
     with concurrent.futures.ThreadPoolExecutor(len(names)) as pool:
@@ -131,12 +157,13 @@ def phase_card_and_build():
           f"loaded in {time.perf_counter() - t0:.2f} s (nvcc "
           + ", ".join(f"{n} {_build.build_seconds.get(n, 0.0):.2f} s"
                       for n in names) + ")")
-    report = os.path.join(_build._build_dir(), "time_power.ptxas.txt")
-    if os.path.exists(report):          # absent when the build was cached
-        with open(report) as f:
-            lines = [ln.strip() for ln in f
-                     if "registers" in ln or "spill" in ln]
-        print("[build] time_power ptxas: " + " | ".join(lines))
+    for name in ("time_power", "equiv_power_fd"):
+        report = os.path.join(_build._build_dir(), f"{name}.ptxas.txt")
+        if os.path.exists(report):      # absent when the build was cached
+            with open(report) as f:
+                lines = [ln.strip() for ln in f
+                         if "registers" in ln or "spill" in ln]
+            print(f"[build] {name} ptxas: " + " | ".join(lines))
     return card
 
 
@@ -177,14 +204,9 @@ def phase_kernel_vs_plain(card: str) -> dict:
                 lib_ms = time_ms(lambda: (torch.bmm(Sf, H1f),
                                           torch.bmm(Sf, H2f)), iters)
                 del Sf, H1f, H2f
-                # in turns: plain, kernel, kernel, plain
-                p1 = time_ms(lambda: ek.equiv_power_plain(*args, **kw), iters)
-                k1 = time_ms(lambda: ek.equiv_power(*args, block_b=bt, **kw),
-                             iters)
-                k2 = time_ms(lambda: ek.equiv_power(*args, block_b=bt, **kw),
-                             iters)
-                p2 = time_ms(lambda: ek.equiv_power_plain(*args, **kw), iters)
-                k_ms, p_ms = (k1 + k2) / 2, (p1 + p2) / 2
+                k_ms, p_ms = in_turns(
+                    lambda: ek.equiv_power_plain(*args, **kw),
+                    lambda: ek.equiv_power(*args, block_b=bt, **kw), iters)
                 # bytes: every input once, the output once; operations:
                 # the two plane products, Parseval, the tail/head inverse
                 # DFT and the head corrections, as FP32 FMAs
@@ -207,6 +229,86 @@ def phase_kernel_vs_plain(card: str) -> dict:
                                 library_ms=lib_ms, **bd)
             del fk
         del tables, td
+        torch.cuda.empty_cache()
+    return main
+
+
+def phase_fd_vs_plain(card: str) -> dict:
+    """K5 (``sweep="fd"``) against its plain version and against K1 at
+    Config(), on the auto fd plan; returns the main path's entry (lerp,
+    f32, B=16: the full-rate stage's shape)."""
+    from zybo_rt_sampler_image_detection_torch.config import Config
+    from zybo_rt_sampler_image_detection_torch.ops import (
+        beamform, equiv_kernel as ek)
+
+    cfg = Config()
+    gen = torch.Generator("cuda").manual_seed(2468)
+    frames = torch.randn(FULLRATE_BATCH, cfg.n_microphones, cfg.n_samples,
+                         device="cuda", generator=gen) * 0.05
+    main = None
+    for algo in ("lerp", "hybrid"):
+        tables = beamform.make_tables(cfg, algo, device="cuda")
+        for mode in ("f32", "high", "bf16"):
+            fk = ek.FusedEquivBeamformer(tables, mode=mode, sweep="fd")
+            # the path must run K5, not K1's single-chunk case
+            assert fk.runs_fd and fk.n_fc > 1, (algo, mode, fk.n_fc)
+            for B in (1, FULLRATE_BATCH):
+                S, sj, bt = fk.kernel_inputs(frames[:B])
+                kw = dict(n_tail=fk.n_tail, Tc=fk.Tc, inv=fk.inv)
+                args = (S, fk.H1, fk.H2, fk.ib1, fk.ib2, sj, fk.Wc3)
+
+                def kern():
+                    return ek.equiv_power_fd(*args, n_fc=fk.n_fc,
+                                             block_b=bt, **kw)
+
+                def plain():
+                    return ek.equiv_power_fd_plain(*args, n_fc=fk.n_fc,
+                                                   **kw)
+
+                def k1_kern():
+                    return ek.equiv_power(*args, block_b=bt, **kw)
+
+                got, ref, k1 = kern(), plain(), k1_kern()
+                torch.cuda.synchronize()
+                shape = (B, fk.res_x, fk.res_y)
+                got, ref, k1 = (o[:B, :fk.D].reshape(shape)
+                                for o in (got, ref, k1))
+                assert torch.isfinite(got).all(), (algo, mode, B)
+                err, err_k1 = rel_err(got, ref), rel_err(got, k1)
+                abs_err = (got.double() - ref.double()).abs().max().item()
+                same_peak = all(peak(got[b]) == peak(ref[b])
+                                and peak(got[b]) == peak(k1[b])
+                                for b in range(B))
+                iters = 10 if B == 1 else 3
+                Sf, H1f, H2f = S.float(), fk.H1.float(), fk.H2.float()
+                lib_ms = time_ms(lambda: (torch.bmm(Sf, H1f),
+                                          torch.bmm(Sf, H2f)), iters)
+                del Sf, H1f, H2f
+                k_ms, p_ms = in_turns(plain, kern, iters)
+                k1_ms = time_ms(k1_kern, iters)
+                # the same work as K1, so K1's bound: the F bins, not the
+                # zero bins that pad them to n_fc chunks
+                BP, DP, KP = S.shape[1], fk.H1.shape[2], S.shape[2]
+                flops = 2 * BP * DP * (2 * fk.F * KP + 2 * fk.F
+                                       + 2 * fk.F * fk.Tt + fk.JM * fk.Tc)
+                bd = bound(nbytes(*(a[:fk.F] for a in args[:5]), sj, fk.Wc3)
+                           + 4 * BP * DP, flops)
+                print(f"[K5] {algo:6s} {mode:4s} B={B:2d} bt={bt} "
+                      f"n_fc={fk.n_fc} fc={fk.fc} F={fk.F}: max rel err vs "
+                      f"plain {err:.3e} vs K1 {err_k1:.3e} (tol "
+                      f"{TOL[mode]:.0e}) max abs {abs_err:.3e} same peak "
+                      f"{same_peak} | kernel {k_ms:.4f} ms plain "
+                      f"{p_ms:.4f} ms K1 {k1_ms:.4f} ms bmm pair "
+                      f"{lib_ms:.4f} ms bound {bd['bound_ms']:.4f} ms "
+                      f"({bd['bound_by']}) [{card}]")
+                ok = (err <= TOL[mode] and err_k1 <= TOL[mode]
+                      and (mode != "bf16" or same_peak))
+                assert ok, f"fd kernel disagrees: {algo} {mode} B={B}"
+                if (algo, mode, B) == ("lerp", "f32", FULLRATE_BATCH):
+                    main = dict(max_abs_err=abs_err, ms=k_ms, plain_ms=p_ms,
+                                library_ms=lib_ms, **bd)
+            del fk
+        del tables
         torch.cuda.empty_cache()
     return main
 
@@ -261,12 +363,7 @@ def phase_time_kernel_vs_plain(card: str) -> dict:
                 err_td = rel_err(got, td[:B])
                 peak_td = all(peak(got[b]) == peak(td[b]) for b in range(B))
                 iters = 10 if B == 1 else 3
-                # in turns: plain, kernel, kernel, plain
-                p1 = time_ms(plain, iters)
-                k1 = time_ms(kern, iters)
-                k2 = time_ms(kern, iters)
-                p2 = time_ms(plain, iters)
-                k_ms, p_ms = (k1 + k2) / 2, (p1 + p2) / 2
+                k_ms, p_ms = in_turns(plain, kern, iters)
                 # the work the maps need, whatever the plan: one product
                 # per nonzero weight and sample, then the squares and sums;
                 # bytes: the signal, the nonzero weights, the corrections
@@ -325,27 +422,23 @@ def _source_frame(cfg, tx: int, ty: int, seed: int = 3) -> np.ndarray:
     return fr
 
 
-def phase_end_to_end() -> int:
-    from zybo_rt_sampler_image_detection_torch.apps import pipeline
-    from zybo_rt_sampler_image_detection_torch.config import Config
+def _live_run(label: str, p, counter, sig: np.ndarray, tx: int,
+              ty: int) -> int:
+    """One live-stage run: the emulator on loopback -> ``p`` -> at least
+    N_HEATMAPS maps, with every launch count set to 0 just before the run
+    and the path's kernel's read just after; the peak at the source and one
+    received frame
+    against the plain FP32 ``steered_power``."""
     from zybo_rt_sampler_image_detection_torch.ingest.streamer import (
         NativeStreamer)
-    from zybo_rt_sampler_image_detection_torch.ops import (
-        beamform, equiv_kernel as ek)
+    from zybo_rt_sampler_image_detection_torch.ops import beamform
 
-    cfg = Config()
-    tx, ty = 40, 20
-    sig = np.tile(_source_frame(cfg, tx, ty), (1, 8))
-    t0 = time.perf_counter()
-    p = pipeline.Pipeline(cfg, "lerp", replay_mode=True, backend="native",
-                          power_backend="equiv_kernel", device="cuda")
-    print(f"[e2e] pipeline built in {time.perf_counter() - t0:.2f} s "
-          f"(kernel mode {p._power_fn.mode})")
+    cfg = p.cfg
     emu = NativeStreamer(cfg, n_arrays=cfg.active_arrays)
     maps = []
     try:
         emu.start(sig, rate=cfg.sample_rate)
-        ek.equiv_power.launches = 0
+        zero_counts()
         t0 = time.perf_counter()
         p.connect(timeout=30.0)
         p.start_heatmap()
@@ -357,18 +450,18 @@ def phase_end_to_end() -> int:
                                            timeout=10.0)
     finally:
         p.stop()
+        launches = getattr(*counter)
         sent = emu.stop()
-    launches = ek.equiv_power.launches
     rep = p.report()
-    print(f"[e2e] {len(maps)} heatmaps in {elapsed:.2f} s (connect and "
-          f"warm-up included); kernel launches {launches}; emulator sent "
-          f"{sent} packets; report {json.dumps(rep)}")
-    assert launches >= N_HEATMAPS, f"only {launches} kernel launches"
+    print(f"[e2e] {label}: {len(maps)} heatmaps in {elapsed:.2f} s (connect "
+          f"and warm-up included); kernel launches {launches}; emulator "
+          f"sent {sent} packets; report {json.dumps(rep)}")
+    assert launches >= N_HEATMAPS, f"{label}: only {launches} launches"
     stack = np.stack(maps)
     assert stack.shape == (N_HEATMAPS, cfg.max_res_x, cfg.max_res_y)
     assert np.isfinite(stack).all(), "non-finite heatmap"
     pk = np.unravel_index(stack[-1].argmax(), stack[-1].shape)
-    print(f"[e2e] last heatmap peak {tuple(int(i) for i in pk)} "
+    print(f"[e2e] {label}: last heatmap peak {tuple(int(i) for i in pk)} "
           f"(source at ({tx}, {ty}))")
     assert abs(pk[0] - tx) <= 1 and abs(pk[1] - ty) <= 1, "peak misplaced"
 
@@ -377,10 +470,41 @@ def phase_end_to_end() -> int:
     ref = beamform.steered_power(x, p.tables)
     torch.cuda.synchronize()
     err = rel_err(got, ref)
-    print(f"[e2e] received frame seq={seq}: kernel path vs plain FP32 "
-          f"steered_power max rel err {err:.3e} (tol {E2E_RTOL:.0e})")
-    assert err <= E2E_RTOL, "kernel path disagrees with steered_power"
+    print(f"[e2e] {label}: received frame seq={seq}: kernel path vs plain "
+          f"FP32 steered_power max rel err {err:.3e} (tol {E2E_RTOL:.0e})")
+    assert err <= E2E_RTOL, f"{label}: kernel path disagrees"
+    return launches
+
+
+def phase_end_to_end() -> dict:
+    from zybo_rt_sampler_image_detection_torch.apps import pipeline
+    from zybo_rt_sampler_image_detection_torch.config import Config
+    from zybo_rt_sampler_image_detection_torch.ops import (
+        beamform, equiv_kernel as ek)
+
+    cfg = Config()
+    tx, ty = 40, 20
+    sig = np.tile(_source_frame(cfg, tx, ty), (1, 8))
+    t0 = time.perf_counter()
+    p = pipeline.Pipeline(cfg, "lerp", replay_mode=True, backend="native",
+                          power_backend="equiv_kernel", device="cuda")
+    print(f"[e2e] pipeline built in {time.perf_counter() - t0:.2f} s "
+          f"(kernel mode {p._power_fn.mode})")
+    out = {"equiv": _live_run("power_backend=equiv_kernel", p,
+                              (ek.equiv_power, "launches"), sig, tx, ty)}
     del p
+    torch.cuda.empty_cache()
+
+    # the same stage through K5: an explicit power_fn, as a user passes it
+    fd = ek.FusedEquivBeamformer(beamform.make_tables(cfg, "lerp",
+                                                      device="cuda"),
+                                 sweep="fd")
+    assert fd.runs_fd and fd.n_fc > 1, fd.n_fc
+    p = pipeline.Pipeline(cfg, "lerp", replay_mode=True, backend="native",
+                          device="cuda", power_fn=fd)
+    out["fd"] = _live_run(f'sweep="fd" (n_fc={fd.n_fc}, fc={fd.fc})', p,
+                          (ek.equiv_power_fd, "launches"), sig, tx, ty)
+    del p, fd
     torch.cuda.empty_cache()
 
     t_high = beamform.make_tables(cfg.replace(matmul_precision="high"),
@@ -388,7 +512,7 @@ def phase_end_to_end() -> int:
     kind, _ = pipeline._select_power_backend(t_high)
     print(f"[policy] auto backend at matmul_precision='high': {kind}")
     assert kind == "equiv_kernel", kind
-    return launches
+    return out
 
 
 class _Recorder:
@@ -409,8 +533,8 @@ class _Recorder:
 
 def _fullrate_run(label: str, make_pipeline, counter) -> dict:
     """One full-rate run: the stage built and warmed up, the emulator at
-    line rate, the counter set to 0 just before the run and read just
-    after it."""
+    line rate, every launch count set to 0 just before the run and the
+    path's kernel's (``counter``) read just after it."""
     from zybo_rt_sampler_image_detection_torch.ingest.streamer import (
         NativeStreamer)
     from zybo_rt_sampler_image_detection_torch.ops import beamform
@@ -432,7 +556,7 @@ def _fullrate_run(label: str, make_pipeline, counter) -> dict:
     emu.start(sig, rate=cfg.sample_rate)
     try:
         p.connect(timeout=30.0)
-        setattr(*counter, 0)
+        zero_counts()
         p.run_stage(stage)
         t0, sent0 = time.perf_counter(), emu.sent
         # the emulator's packets in each quarter second: an even slowdown
@@ -552,6 +676,18 @@ def phase_fullrate() -> dict:
 
     out["equiv"] = _fullrate_run("power_backend=equiv_kernel", make_equiv,
                                  (ek.equiv_power, "launches"))
+
+    def make_fd():
+        tables = beamform.make_tables(cfg, "lerp", device="cuda")
+        fd = ek.FusedEquivBeamformer(tables, sweep="fd")
+        assert fd.runs_fd and fd.n_fc > 1, fd.n_fc
+        rec = _Recorder(fd)
+        p = pipeline.Pipeline(cfg, "lerp", replay_mode=True,
+                              backend="native", device="cuda", power_fn=rec)
+        return p, rec
+
+    out["fd"] = _fullrate_run('FusedEquivBeamformer(sweep="fd")', make_fd,
+                              (ek.equiv_power_fd, "launches"))
     return out
 
 
@@ -600,21 +736,28 @@ def main() -> int:
     card = phase_card_and_build()
     main_k = phase_kernel_vs_plain(card)
     t1 = time.perf_counter()
-    main_t = phase_time_kernel_vs_plain(card)
+    main_fd = phase_fd_vs_plain(card)
     t2 = time.perf_counter()
-    launches = phase_end_to_end()
+    main_t = phase_time_kernel_vs_plain(card)
     t3 = time.perf_counter()
+    live = phase_end_to_end()
+    t4 = time.perf_counter()
     full = phase_fullrate()
     phase_policy()
-    t4 = time.perf_counter()
-    print(f"[time] build+K1 {t1 - t0:.1f} s, K2-4 {t2 - t1:.1f} s, live "
-          f"{t3 - t2:.1f} s, full rate+policy {t4 - t3:.1f} s")
+    t5 = time.perf_counter()
+    print(f"[time] build+K1 {t1 - t0:.1f} s, K5 {t2 - t1:.1f} s, K2-4 "
+          f"{t3 - t2:.1f} s, live {t4 - t3:.1f} s, full rate+policy "
+          f"{t5 - t4:.1f} s")
     kernels = [dict(name="equiv_power", route="cuda", source=KERNEL_SOURCE,
-                    replaces=KERNEL_REPLACES, launches=launches, **main_k)]
+                    replaces=KERNEL_REPLACES, launches=live["equiv"],
+                    **main_k)]
     kernels.append(dict(
         name="time_power", route="cuda", source=TIME_SOURCE,
         replaces=TIME_REPLACES[0], also_replaces=TIME_REPLACES[1:],
         launches=full["fused"]["launches"], **main_t))
+    kernels.append(dict(
+        name="equiv_power_fd", route="cuda", source=FD_SOURCE,
+        replaces=FD_REPLACES, launches=full["fd"]["launches"], **main_fd))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -50,7 +50,7 @@ def test_float64_matches_oracle(tiny_cfg, frame, algorithm):
     cfg = tiny_cfg.replace(matmul_dtype="float64")
     ref = oracle_heatmap(cfg, frame.astype(np.float64), algorithm)
     t = tb.make_tables(Config.tiny().replace(matmul_dtype="float64"),
-                       algorithm, cache=False)
+                       algorithm, cache=False, device="cpu")
     got = tb.steered_power(torch.from_numpy(frame.astype(np.float64)),
                            t).numpy()
     assert got.dtype == np.float64
@@ -69,7 +69,7 @@ def test_fp32_matches_jax_steered_power(tiny_cfg, rng, algorithm):
         np.asarray(jt.W), None if jt.Wc is None else np.asarray(jt.Wc),
         np.asarray(jt.adaptive), tau_min=jt.tau_min, corr_js=jt.corr_js,
         precision=jt.precision, n_samples=jt.n_samples, res_x=jt.res_x,
-        res_y=jt.res_y, algorithm=jt.algorithm)
+        res_y=jt.res_y, algorithm=jt.algorithm, device="cpu")
     ref = np.asarray(jb.steered_power(frames, jt), np.float64)
     got = tb.steered_power(torch.from_numpy(frames), tt).double().numpy()
     np.testing.assert_allclose(got, ref, rtol=1e-5, atol=1e-12)
@@ -82,7 +82,7 @@ def test_fp32_matches_jax_steered_power(tiny_cfg, rng, algorithm):
 @pytest.mark.parametrize("algorithm", ALGOS)
 def test_golden_tiny(algorithm):
     golden = np.load(os.path.join(GOLDEN, "tiny_heatmaps.npz"))
-    t = tb.make_tables(Config.tiny(), algorithm, cache=False)
+    t = tb.make_tables(Config.tiny(), algorithm, cache=False, device="cpu")
     got = tb.steered_power(torch.from_numpy(golden["frame"]), t).numpy()
     ref = golden[algorithm]
     np.testing.assert_allclose(got, ref, rtol=1e-5,
@@ -93,7 +93,7 @@ def test_golden_tiny(algorithm):
 def test_golden_reference_shape(algorithm):
     """The full reference shape (57x32 grid, 256 mics, 3 of 4 slots)."""
     golden = np.load(os.path.join(GOLDEN, "reference_heatmaps.npz"))
-    t = tb.make_tables(Config(), algorithm, cache=False)
+    t = tb.make_tables(Config(), algorithm, cache=False, device="cpu")
     got = tb.steered_power(torch.from_numpy(golden["frame"]), t).numpy()
     ref = golden[algorithm]
     np.testing.assert_allclose(got, ref, rtol=1e-5,
@@ -108,7 +108,7 @@ def test_bf16_tables_match_jax(tiny_cfg, rng):
     jt = jb.make_tables(cfg, "lerp", cache=False)
     tt = tb.make_tables(Config.tiny().replace(matmul_dtype="bfloat16",
                                               matmul_precision="default"),
-                        "lerp", cache=False)
+                        "lerp", cache=False, device="cpu")
     ref = np.asarray(jb.steered_power(frames, jt), np.float64)
     got = tb.steered_power(torch.from_numpy(frames), tt).double().numpy()
     np.testing.assert_allclose(got, ref, rtol=1e-5, atol=1e-12)

@@ -1,5 +1,6 @@
-"""The port's CUDA kernels (fused equiv power, fused time-domain power)
-against their plain torch versions, on the card.  Every test is marked ``cuda`` and skips where
+"""The port's CUDA kernels (fused equiv power in both sweeps, fused
+time-domain power) against their plain torch versions, on the card.
+Every test is marked ``cuda`` and skips where
 ``torch.cuda.is_available()`` is False (the kernel has no CPU mode).
 
 This file imports neither JAX nor the test conftest's helpers, so it also
@@ -227,3 +228,94 @@ def test_fused_policy_launches_kernel(cuda, monkeypatch):
         torch.from_numpy(_frames(Config.tiny(), 4)).to(cuda))
     torch.cuda.synchronize()
     assert out.shape == (4, 9, 7) and tf.fused_power.launches == before + 1
+
+
+# --- direction-innermost equiv power (csrc/equiv_power_fd.cu) -------------
+
+
+def _run_fd(fused, x):
+    """The fd kernel, its plain version and K1 on the same inputs."""
+    S, sj, bt = fused.kernel_inputs(x)
+    kw = dict(n_tail=fused.n_tail, Tc=fused.Tc, inv=fused.inv)
+    args = (S, fused.H1, fused.H2, fused.ib1, fused.ib2, sj, fused.Wc3)
+    before = tk.equiv_power_fd.launches
+    got = tk.equiv_power_fd(*args, n_fc=fused.n_fc, block_b=bt, **kw)
+    torch.cuda.synchronize()
+    assert tk.equiv_power_fd.launches == before + 1
+    k1 = tk.equiv_power(*args, block_b=bt, **kw)
+    return got, tk.equiv_power_fd_plain(*args, n_fc=fused.n_fc, **kw), k1
+
+
+@pytest.mark.parametrize("n_fc", [2, 3])
+@pytest.mark.parametrize("mode", ["f32", "high", "bf16"])
+@pytest.mark.parametrize("algorithm", ["lerp", "hybrid", "convolve"])
+@pytest.mark.parametrize("B", [1, 3, 11])
+def test_fd_kernel_matches_plain_tiny(cuda, n_fc, mode, algorithm, B):
+    """The fd kernel against its plain version and against K1, at the
+    mode's gate (the sums run in other orders, never bit-identical)."""
+    cfg = Config.tiny()
+    t = tb.make_tables(cfg, algorithm, cache=False, device=cuda)
+    fused = tk.FusedEquivBeamformer(t, mode=mode, plan_override=(8, n_fc),
+                                    sweep="fd")
+    assert fused.runs_fd and fused.FP == fused.fc * n_fc >= fused.F
+    got, ref, k1 = _run_fd(fused, torch.from_numpy(_frames(cfg, B)).to(cuda))
+    np.testing.assert_allclose(got.cpu().numpy(), ref.cpu().numpy(),
+                               rtol=TOL[mode], atol=1e-14)
+    np.testing.assert_allclose(got.cpu().numpy(), k1.cpu().numpy(),
+                               rtol=TOL[mode], atol=1e-14)
+
+
+@pytest.mark.parametrize("algorithm", ["lerp", "hybrid"])
+def test_fd_kernel_matches_plain_reference_shape(cuda, algorithm):
+    """``Config()`` on the auto fd plan (more than one chunk)."""
+    cfg = Config()
+    t = tb.make_tables(cfg, algorithm, device=cuda)
+    fused = tk.FusedEquivBeamformer(t, mode="f32", sweep="fd")
+    assert fused.runs_fd and fused.n_fc > 1
+    x = torch.from_numpy(_frames(cfg, 5) * 0.5).to(cuda)
+    got, ref, k1 = _run_fd(fused, x)
+    for other in (ref, k1):
+        np.testing.assert_allclose(got.cpu().numpy(), other.cpu().numpy(),
+                                   rtol=TOL["f32"], atol=1e-14)
+    power = fused(x)
+    exact = tb.steered_power(x, t)
+    np.testing.assert_allclose(power.cpu().numpy(), exact.cpu().numpy(),
+                               rtol=1e-4, atol=1e-14)
+
+
+def test_fd_wrapper_rejects_bad_inputs(cuda):
+    t = tb.make_tables(Config.tiny(), "lerp", cache=False, device=cuda)
+    fused = tk.FusedEquivBeamformer(t, mode="f32", plan_override=(8, 3),
+                                    sweep="fd")
+    S, sj, bt = fused.kernel_inputs(torch.zeros(3, 16, 64, device=cuda))
+    kw = dict(n_tail=fused.n_tail, Tc=fused.Tc, inv=fused.inv)
+    args = (fused.H1, fused.H2, fused.ib1, fused.ib2, sj, fused.Wc3)
+    with pytest.raises(ValueError, match="dtype"):
+        tk.equiv_power_fd(S.double(), *args, n_fc=3, block_b=bt, **kw)
+    with pytest.raises(ValueError, match="block_b"):
+        tk.equiv_power_fd(S, *args, n_fc=3, block_b=8, **kw)
+    with pytest.raises(ValueError, match="n_fc"):
+        tk.equiv_power_fd(S, *args, n_fc=4, block_b=bt, **kw)
+    with pytest.raises(ValueError, match="device"):
+        tk.equiv_power_fd(S, fused.H1.cpu(), *args[1:], n_fc=3, block_b=bt,
+                          **kw)
+    with pytest.raises(ValueError, match="contiguous"):
+        tk.equiv_power_fd(S.transpose(1, 2).contiguous().transpose(1, 2),
+                          *args, n_fc=3, block_b=bt, **kw)
+
+
+@pytest.mark.parametrize("bf16", [0, 1])
+@pytest.mark.parametrize("bt", [1, 2, 4, 8])
+def test_fd_blocks_per_sm(cuda, bf16, bt):
+    """The runtime's occupancy of the chunk kernel at the reference
+    shape's fd plan: at least one block an SM, at most the threads allow;
+    bad arguments come back as a negated CUDA error."""
+    lib = tk._lib("equiv_power_fd")
+    fc = 22 if bf16 else 11
+    n = lib.zrt_equiv_power_fd_blocks_per_sm(512, fc, 106, bf16, bt)
+    assert 1 <= n <= 2048 // (512 if bt == 1 else 256)
+    assert lib.zrt_equiv_power_fd_blocks_per_sm(512, fc, 106, bf16, 3) < 0
+    assert lib.zrt_equiv_power_fd_blocks_per_sm(500, fc, 106, bf16, bt) < 0
+    dev = torch.device("cuda", 0)
+    assert tk._fd_slots(lib, dev, 512, fc, 106, bf16, bt) == (
+        n * torch.cuda.get_device_properties(dev).multi_processor_count)

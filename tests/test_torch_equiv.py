@@ -145,7 +145,8 @@ def test_fused_disabled_mics_gather(tiny_cfg, rng):
 
 def test_fused_default_mode_follows_tables():
     def mode(**kw):
-        t = tb.make_tables(Config.tiny().replace(**kw), "lerp", cache=False)
+        t = tb.make_tables(Config.tiny().replace(**kw), "lerp", cache=False,
+                           device="cpu")
         return tk.FusedEquivBeamformer(t).mode
 
     assert mode(matmul_precision="high") == "high"
@@ -154,7 +155,7 @@ def test_fused_default_mode_follows_tables():
 
 
 def test_fused_rejects_unknown_mode():
-    t = tb.make_tables(Config.tiny(), "lerp", cache=False)
+    t = tb.make_tables(Config.tiny(), "lerp", cache=False, device="cpu")
     with pytest.raises(ValueError, match="mode"):
         tk.FusedEquivBeamformer(t, mode="highest")
 
@@ -167,7 +168,7 @@ def test_hopper_plan_fits_shared_memory():
         for bt in tk.FRAME_TILES:
             assert tk.smem_bytes(bt, Tt, 512, JM) <= tk.SMEM_MAX
     et = tf.make_equiv_tables(tb.make_tables(Config.tiny(), "lerp",
-                                             cache=False))
+                                             cache=False, device="cpu"))
     huge = torch.zeros(et.n_bins, 8000)
     with pytest.raises(ValueError, match="shared-memory plan"):
         tk.FusedEquivBeamformer(dataclasses.replace(et, ib_re=huge,
@@ -177,7 +178,7 @@ def test_hopper_plan_fits_shared_memory():
 def test_wrapper_uses_plain_version_only_on_cpu(tiny_cfg, rng):
     """CPU tensors take the plain version without counting a launch; a
     tensor on any other non-CUDA device raises instead of falling back."""
-    t = tb.make_tables(Config.tiny(), "hybrid", cache=False)
+    t = tb.make_tables(Config.tiny(), "hybrid", cache=False, device="cpu")
     fused = tk.FusedEquivBeamformer(t)
     x = torch.from_numpy(_frames(tiny_cfg, rng, 2))
     S, sj, bt = fused.kernel_inputs(x)

@@ -120,7 +120,7 @@ def test_batched_pipeline_through_fused_beamformer(backend, port):
     """The same contract through ``power_fn=FusedBeamformer(tables)``,
     the stage that carries the fused time-domain kernel on the card."""
     cfg = Config.tiny().replace(udp_port=port)
-    t = beamform.make_tables(cfg, "lerp", cache=False)
+    t = beamform.make_tables(cfg, "lerp", cache=False, device="cpu")
     fused = fused_kernel.FusedBeamformer(t)
     _check_every_frame(cfg, *_run_batched(cfg, backend, power_fn=fused))
 
@@ -137,7 +137,7 @@ def test_f16_transfer_and_channel_slicing_pad_back(rng, with_fused):
     """Channel-sliced f16 batches are upcast and padded back to the full
     mic axis before the policy's program or a custom power_fn sees them."""
     cfg = Config.northstar().replace(max_res_x=9, max_res_y=7)
-    t = beamform.make_tables(cfg, "lerp", cache=False)
+    t = beamform.make_tables(cfg, "lerp", cache=False, device="cpu")
     n_ch = 48
     batch = np.zeros((2, cfg.n_microphones, cfg.n_samples), np.float32)
     batch[:, :n_ch] = rng.standard_normal((2, n_ch, cfg.n_samples)) * 0.1
@@ -165,7 +165,7 @@ def test_pad_full():
 
 def test_stage_rejects_batch_beyond_ring():
     cfg = Config.tiny()
-    t = beamform.make_tables(cfg, "lerp", cache=False)
+    t = beamform.make_tables(cfg, "lerp", cache=False, device="cpu")
     with pytest.raises(ValueError, match="ring capacity"):
         pipeline.BatchedHeatmapProducer(_FakeReceiver(cfg), t, None,
                                         PipelineMetrics(), batch=16)

@@ -234,7 +234,7 @@ def test_wider_inputs_slice_to_active_mics(tiny_cfg, rng):
     """The identity active-mic set slices (B, C > M, N) inputs to M rows
     (``pallas_kernels.py:986-989``)."""
     frames = _frames(tiny_cfg, rng)
-    t = tb.make_tables(tiny_cfg, "lerp", cache=False)
+    t = tb.make_tables(tiny_cfg, "lerp", cache=False, device="cpu")
     fused = tf.FusedBeamformer(t)
     assert fused.adaptive is None
     wide = np.concatenate([frames, np.ones_like(frames)], axis=1)
@@ -267,7 +267,7 @@ def test_plan_fits_every_preset_shape():
     kernel's limits."""
     for cfg in (Config.tiny(), Config.northstar(), Config()):
         for algo in ("lerp", "hybrid"):
-            t = tb.make_tables(cfg, algo, cache=False)
+            t = tb.make_tables(cfg, algo, cache=False, device="cpu")
             D, T, M = t.W.shape
             for tile_d in tf.TILE_DS:
                 NI, MG, TKC, smem = tf.plan(T, cfg.n_samples, M, tile_d)
@@ -288,7 +288,7 @@ def test_cpu_tensors_take_the_plain_version(tiny_cfg, rng, monkeypatch):
 
     monkeypatch.setattr(_build, "load", no_build)
     before = tf.fused_power.launches
-    t = tb.make_tables(tiny_cfg, "lerp", cache=False)
+    t = tb.make_tables(tiny_cfg, "lerp", cache=False, device="cpu")
     tf.FusedBeamformer(t)(torch.from_numpy(_frames(tiny_cfg, rng)))
     assert tf.fused_power.launches == before
 
@@ -298,7 +298,7 @@ def test_cuda_request_raises_without_gpu(tiny_cfg):
         pytest.skip("a CUDA GPU is present")
     with pytest.raises(RuntimeError, match="cuda"):
         tb.make_tables(tiny_cfg, "lerp", cache=False, device="cuda")
-    t = tb.make_tables(tiny_cfg, "lerp", cache=False)
+    t = tb.make_tables(tiny_cfg, "lerp", cache=False, device="cpu")
     fused = tf.FusedBeamformer(t)
     s, corr = fused.kernel_inputs(torch.zeros(1, 16, 64))
     with pytest.raises(ValueError, match="unsupported device"):

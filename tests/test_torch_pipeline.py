@@ -168,7 +168,7 @@ def test_default_power_fn_every_backend(monkeypatch, rng):
     """Every kind the policy can return takes (M, N) frames and (B, M, N)
     batches and matches the JAX exact product."""
     cfg = Config.tiny().replace(matmul_precision="high")
-    t = beamform.make_tables(cfg, "lerp", cache=False)
+    t = beamform.make_tables(cfg, "lerp", cache=False, device="cpu")
     frame = (rng.standard_normal((cfg.n_microphones, cfg.n_samples))
              * 0.1).astype(np.float32)
     ref = _jax_power(cfg, frame)

@@ -42,7 +42,7 @@ def _assert_same(jt, tt):
 def test_tables_equal_jax_builders(preset, algorithm):
     jcfg, tcfg = _cfgs(preset)
     _assert_same(jb.make_tables(jcfg, algorithm, cache=False),
-                 tb.make_tables(tcfg, algorithm, cache=False))
+                 tb.make_tables(tcfg, algorithm, cache=False, device="cpu"))
 
 
 @pytest.mark.parametrize("algorithm", ("lerp", "hybrid"))
@@ -56,7 +56,7 @@ def test_from_numpy_carries_jax_tables(algorithm):
         precision=jt.precision, n_samples=jt.n_samples, res_x=jt.res_x,
         res_y=jt.res_y, algorithm=jt.algorithm, device="cpu")
     _assert_same(jt, tt)
-    own = tb.make_tables(Config.tiny(), algorithm, cache=False)
+    own = tb.make_tables(Config.tiny(), algorithm, cache=False, device="cpu")
     assert torch.equal(own.W, tt.W)
 
 
@@ -68,10 +68,10 @@ def test_from_numpy_bf16_tables():
         np.asarray(jt.W), np.asarray(jt.Wc), np.asarray(jt.adaptive),
         tau_min=jt.tau_min, corr_js=jt.corr_js, precision=jt.precision,
         n_samples=jt.n_samples, res_x=jt.res_x, res_y=jt.res_y,
-        algorithm=jt.algorithm)
+        algorithm=jt.algorithm, device="cpu")
     assert tt.W.dtype == torch.bfloat16
     own = tb.make_tables(Config.tiny().replace(matmul_dtype="bfloat16"),
-                         "lerp", cache=False)
+                         "lerp", cache=False, device="cpu")
     assert torch.equal(own.W, tt.W)
     np.testing.assert_array_equal(np.asarray(jt.W, np.float32),
                                   tt.W.float().numpy())
@@ -81,16 +81,16 @@ def test_table_cache_roundtrip_and_names(tmp_path, monkeypatch):
     """The cache serves identical tables, under file names of its own."""
     monkeypatch.setenv("ZRT_TORCH_TABLE_CACHE_DIR", str(tmp_path))
     cfg = Config.tiny()
-    built = tb.make_tables(cfg, "hybrid", cache=True)
+    built = tb.make_tables(cfg, "hybrid", cache=True, device="cpu")
     names = os.listdir(tmp_path)
     assert len(names) == 1 and names[0].startswith("torch-hybrid-")
-    loaded = tb.make_tables(cfg, "hybrid", cache=True)
+    loaded = tb.make_tables(cfg, "hybrid", cache=True, device="cpu")
     assert torch.equal(built.W, loaded.W) and torch.equal(built.Wc, loaded.Wc)
     assert loaded.corr_js == built.corr_js
     assert loaded.tau_min == built.tau_min
     # a corrupt entry falls through to a rebuild
     (tmp_path / names[0]).write_bytes(b"not an npz")
-    again = tb.make_tables(cfg, "hybrid", cache=True)
+    again = tb.make_tables(cfg, "hybrid", cache=True, device="cpu")
     assert torch.equal(again.W, built.W)
 
 
@@ -99,3 +99,20 @@ def test_default_cache_dir_is_not_the_jax_one(monkeypatch):
     d = tb._cache_dir()
     assert "zrt_tables" not in d and d.endswith(os.path.join("build",
                                                              "tables"))
+
+
+def test_tables_default_to_the_card():
+    """The builders put their tables on the card unless the caller asks
+    for the CPU; without a GPU the default raises rather than carrying on
+    on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA GPU is present")
+    with pytest.raises(RuntimeError, match="torch.cuda.is_available"):
+        tb.make_tables(Config.tiny(), "lerp", cache=False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tb.make_lerp_tables(Config.tiny())
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tb.SteeringTables.from_numpy(
+            np.zeros((2, 3, 4), np.float32), None, np.arange(4), tau_min=0,
+            corr_js=(), precision="highest", n_samples=8, res_x=2, res_y=1,
+            algorithm="pad")

@@ -102,10 +102,10 @@ class SteeringTables:
     @classmethod
     def from_numpy(cls, W, Wc, adaptive, *, tau_min, corr_js, precision,
                    n_samples, res_x, res_y, algorithm,
-                   device="cpu") -> "SteeringTables":
+                   device="cuda") -> "SteeringTables":
         """Tables from NumPy arrays — e.g. the JAX package's own tables
         (``np.asarray`` of each field), so both packages compute on
-        identical weights."""
+        identical weights.  On the card unless ``device="cpu"``."""
         dev = resolve_device(device)
         W = np.asarray(W)
         if W.dtype.kind == "V" or W.dtype.name == "bfloat16":
@@ -138,7 +138,7 @@ def _scatter_w(delays_shift: np.ndarray, weights: np.ndarray,
 
 def _tables(cfg: Config, W: np.ndarray, algorithm: str, tau_min: int,
             Wc: Optional[np.ndarray] = None,
-            corr_js: Tuple[int, ...] = (), device="cpu") -> SteeringTables:
+            corr_js: Tuple[int, ...] = (), device="cuda") -> SteeringTables:
     active, _ = geometry.active_microphones(cfg)
     dev = resolve_device(device)
     return SteeringTables(
@@ -157,7 +157,7 @@ def _tables(cfg: Config, W: np.ndarray, algorithm: str, tau_min: int,
 
 
 def make_pad_tables(cfg: Config, whole: Optional[np.ndarray] = None,
-                    device="cpu") -> SteeringTables:
+                    device="cuda") -> SteeringTables:
     """Pad-and-sum: one unit tap at shift ``whole`` (``pad_and_sum.c:41-47``:
     ``out[pad+i] += s[i]`` — a pure zero-fill shift, no boundary terms)."""
     if whole is None:
@@ -169,7 +169,7 @@ def make_pad_tables(cfg: Config, whole: Optional[np.ndarray] = None,
     return _tables(cfg, W, "pad", 0, device=device)
 
 
-def make_truncated_tables(cfg: Config, device="cpu") -> SteeringTables:
+def make_truncated_tables(cfg: Config, device="cuda") -> SteeringTables:
     """Trunc-and-sum (``api.c:1015-1056``): identical inner math to pad but
     loaded from the angle-grid delay model (``directions.pyx:126-157``)."""
     delays = geometry.calculate_delays_angles(cfg)
@@ -179,7 +179,7 @@ def make_truncated_tables(cfg: Config, device="cpu") -> SteeringTables:
     return dataclasses.replace(t, algorithm="truncated")
 
 
-def make_lerp_tables(cfg: Config, device="cpu") -> SteeringTables:
+def make_lerp_tables(cfg: Config, device="cuda") -> SteeringTables:
     """Lerp-and-sum (``lerp_and_sum.c:50-56``):
 
     ``out[pad+i+1] += s[i] + h*(s[i+1]-s[i])`` with ``h = 1-frac`` expands to
@@ -200,7 +200,7 @@ def make_lerp_tables(cfg: Config, device="cpu") -> SteeringTables:
     return _tables(cfg, W, "lerp", 0, Wc, corr_js, device=device)
 
 
-def make_convolve_tables(cfg: Config, device="cpu") -> SteeringTables:
+def make_convolve_tables(cfg: Config, device="cuda") -> SteeringTables:
     """Convolve-and-sum (``convolve_and_sum.c:73-87``):
 
     ``out[i] += h[k] * padded[i+k]`` with ``padded`` = signal zero-padded by
@@ -222,7 +222,7 @@ def make_convolve_tables(cfg: Config, device="cpu") -> SteeringTables:
     return _tables(cfg, W, "convolve", tau_min, device=device)
 
 
-def make_hybrid_tables(cfg: Config, device="cpu") -> SteeringTables:
+def make_hybrid_tables(cfg: Config, device="cuda") -> SteeringTables:
     """Hybrid convolve-and-sum (``hybrid_convolve_and_sum.c:51-64``):
 
     ``out[pad+i+1] += h[k] * padded[i+k]`` for ``i in [0, N-pad-1)`` — weight
@@ -299,7 +299,7 @@ def _cache_dir() -> str:
 
 
 def make_tables(cfg: Config, algorithm: str, cache: bool = True,
-                device="cpu") -> SteeringTables:
+                device="cuda") -> SteeringTables:
     """Build (or load from the on-disk table cache) the steering tables.
 
     The reference recomputes every coefficient table at process start
@@ -308,8 +308,13 @@ def make_tables(cfg: Config, algorithm: str, cache: bool = True,
     ``build/tables/torch-<algorithm>-<key>.npz`` beside the package
     (override with ``ZRT_TORCH_TABLE_CACHE_DIR``), keyed by the
     geometry-relevant config fields.
+
+    The tables go to ``device``: the card unless the caller asks for
+    ``"cpu"`` (which runs the plain torch versions of the kernels); with
+    no GPU present the default raises (:func:`resolve_device`).
     """
     builder = _BUILDERS[algorithm]
+    resolve_device(device)          # raise before the host's table math
     if not cache:
         return builder(cfg, device=device)
 

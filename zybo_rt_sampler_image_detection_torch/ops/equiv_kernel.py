@@ -18,6 +18,13 @@ Layout the kernel takes (the forward below builds it):
   ``Wc3``    (J*M, Tc, DP) their weights (both None without corrections);
 * output     (BP, DP)     float32 power.
 
+``sweep="fd"`` (the JAX package's direction-innermost order, TPU K5) cuts
+the bins into ``n_fc`` chunks of ``fc`` (F zero-padded to ``FP = fc *
+n_fc``) and runs ``csrc/equiv_power_fd.cu``: a block stages one S chunk
+once and sweeps a group of direction tiles, writing per-chunk partials
+that a second kernel sums in chunk order.  An fd plan of one chunk runs
+K1, as the JAX forward does.
+
 Modes keep the JAX package's names and default rule: ``f32`` and ``high``
 both run FP32 operands with FP32 sums on the CUDA cores (the TPU's 3-pass
 bf16 hi/lo split was a workaround for a bf16-only matrix unit and is not
@@ -33,6 +40,7 @@ block.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional
 
 import numpy as np
@@ -48,6 +56,7 @@ TILE_D = 8
 K_ALIGN = 128
 FRAME_TILES = (8, 4, 2, 1)
 SMEM_MAX = 232448          # dynamic shared memory one H100 block can opt into
+FD_MAX_CHUNKS = 32
 
 _MODES = ("high", "bf16", "f32")
 
@@ -56,31 +65,75 @@ def _round_up(x: int, m: int) -> int:
     return -(-x // m) * m
 
 
-def smem_bytes(bt: int, Tt: int, KP: int, JM: int) -> int:
-    """Shared memory one block of frame tile ``bt`` needs (mirrors
-    ``smem_floats`` in the .cu): the staged spectra (later the sj rows),
-    the tail/head accumulators, the K-group partials, their warp-reduced
+def _work_floats(bt: int, Tt: int) -> int:
+    """Floats of one block's per-tile working set (both kernels): the
+    tail/head accumulators, the K-group partials, their warp-reduced
     groups (blocks of fewer than 32 outputs) and Br/Bi."""
     nt = 512 if bt == 1 else 256                  # block_threads in the .cu
     no = bt * TILE_D
     g2 = nt // 32 if no < 32 else 0
-    return 4 * (bt * max(KP, JM) + Tt * no + 2 * (nt // TILE_D) * no
-                + 2 * g2 * no + 2 * no)
+    return Tt * no + 2 * (nt // TILE_D) * no + 2 * g2 * no + 2 * no
 
 
-def equiv_power_plain(S, H1, H2, ib1, ib2, sj, Wc3, *, n_tail: int,
-                      Tc: int, inv: float) -> torch.Tensor:
-    """Plain-torch version of the kernel, same inputs and layout, FP32.
+def smem_bytes(bt: int, Tt: int, KP: int, JM: int) -> int:
+    """Shared memory one K1 block of frame tile ``bt`` needs (mirrors
+    ``smem_floats`` in equiv_power.cu): the staged spectra (later the sj
+    rows) and the working set."""
+    return 4 * (bt * max(KP, JM) + _work_floats(bt, Tt))
 
-    bf16 planes are widened to FP32 first, which is the kernel's
-    arithmetic (bf16 operands, FP32 sums)."""
-    set_fp32_matmul()
+
+def smem_bytes_fd(bt: int, fc: int, Tt: int, KP: int, itemsize: int) -> int:
+    """Shared memory one fd block needs (mirrors ``launch`` in
+    equiv_power_fd.cu): its S chunk of ``fc`` bins in the plane type,
+    then the working set."""
+    return fc * bt * KP * itemsize + 4 * _work_floats(bt, Tt)
+
+
+def fd_chunks(F: int, Tt: int, KP: int, itemsize: int,
+              bt: int = FRAME_TILES[0]) -> int:
+    """The Hopper fd plan: the fewest frequency chunks whose staged S
+    chunk and working set fit one block of frame tile ``bt``.  Raises
+    ``ValueError`` past ``FD_MAX_CHUNKS``, which bounds the partial
+    buffers (``n_fc * (Tt + 1) * DP`` floats a frame)."""
+    for n_fc in range(1, FD_MAX_CHUNKS + 1):
+        if smem_bytes_fd(bt, -(-F // n_fc), Tt, KP, itemsize) <= SMEM_MAX:
+            return n_fc
+    raise ValueError(f"equiv kernel: no fd shared-memory plan for F={F} "
+                     f"Tt={Tt} KP={KP} in {FD_MAX_CHUNKS} chunks")
+
+
+@functools.lru_cache(maxsize=64)
+def dir_groups(n_bt: int, n_fc: int, n_tiles: int, slots: int) -> int:
+    """Direction groups of an fd launch whose blocks fill ``slots`` places
+    at once (SMs x the blocks an SM holds).  A block's time goes as its
+    tiles, and the launch's as the waves of blocks times that: the fewest
+    groups that minimise waves x tiles a group.  One frame and few chunks
+    alone would leave most SMs idle; a last wave of a few blocks would
+    double the time."""
+    slots = max(1, slots)
+
+    def cost(n_dg):
+        return -(-n_bt * n_fc * n_dg // slots) * -(-n_tiles // n_dg)
+
+    return min(range(1, n_tiles + 1), key=lambda n: (cost(n), n))
+
+
+def _partials_plain(S, H1, H2, ib1, ib2):
+    """Parseval sum (BP, DP) and tail/head samples (TtP, BP, DP) over the
+    bins of ``S``, FP32 (bf16 planes widened first: the kernels'
+    arithmetic is bf16 operands, FP32 sums)."""
     Sf = S.float()
     Br = torch.bmm(Sf, H1.float())                                  # (F, BP, DP)
     Bi = torch.bmm(Sf, H2.float())
     power = torch.sum(Br * Br + Bi * Bi, dim=0)
     TH = (torch.einsum("ft,fbd->tbd", ib1, Br)
           + torch.einsum("ft,fbd->tbd", ib2, Bi))                  # (Tt, BP, DP)
+    return power, TH
+
+
+def _finish_plain(power, TH, sj, Wc3, *, n_tail: int, Tc: int,
+                  inv: float) -> torch.Tensor:
+    """Subtract the tails, add the head corrections, scale."""
     power = power - torch.sum(TH[:n_tail] ** 2, dim=0)
     if Tc:
         v = torch.einsum("bj,jcd->cbd", sj, Wc3)                    # (Tc, BP, DP)
@@ -89,31 +142,137 @@ def equiv_power_plain(S, H1, H2, ib1, ib2, sj, Wc3, *, n_tail: int,
     return power * inv
 
 
-def _lib():
+def equiv_power_plain(S, H1, H2, ib1, ib2, sj, Wc3, *, n_tail: int,
+                      Tc: int, inv: float) -> torch.Tensor:
+    """Plain-torch version of K1, same inputs and layout, FP32."""
+    set_fp32_matmul()
+    power, TH = _partials_plain(S, H1, H2, ib1, ib2)
+    return _finish_plain(power, TH, sj, Wc3, n_tail=n_tail, Tc=Tc, inv=inv)
+
+
+def equiv_power_fd_plain(S, H1, H2, ib1, ib2, sj, Wc3, *, n_tail: int,
+                         Tc: int, inv: float, n_fc: int) -> torch.Tensor:
+    """Plain-torch version of the fd kernel: the partials of each of the
+    ``n_fc`` frequency chunks (``torch.bmm`` at FP32, TF32 off), summed in
+    chunk order, then K1's finish.  The same function as
+    :func:`equiv_power_plain` with the bin sum cut where the kernel cuts
+    it."""
+    set_fp32_matmul()
+    fc = S.shape[0] // n_fc
+    power = TH = None
+    for c in range(n_fc):
+        sl = slice(c * fc, (c + 1) * fc)
+        p, th = _partials_plain(S[sl], H1[sl], H2[sl], ib1[sl], ib2[sl])
+        power, TH = (p, th) if c == 0 else (power + p, TH + th)
+    return _finish_plain(power, TH, sj, Wc3, n_tail=n_tail, Tc=Tc, inv=inv)
+
+
+def _lib(name: str):
     from . import _build
 
-    lib = _build.load("equiv_power")
+    lib = _build.load(name)
     if not getattr(lib, "_zrt_typed", False):
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.zrt_equiv_power.restype = i
-        lib.zrt_equiv_power.argtypes = [
-            p, p, p, p, p, p, p, p,                 # S H1 H2 ib1 ib2 sj wc3 out
-            i, i, i, i, i, i, i, i,                 # F BP KP DP TtP n_tail Tc JMP
-            ctypes.c_float, i, i, p]                # inv bf16 bt stream
+        if name == "equiv_power":
+            lib.zrt_equiv_power.restype = i
+            lib.zrt_equiv_power.argtypes = [
+                p, p, p, p, p, p, p, p,             # S H1 H2 ib1 ib2 sj wc3 out
+                i, i, i, i, i, i, i, i,             # F BP KP DP TtP n_tail Tc JMP
+                ctypes.c_float, i, i, p]            # inv bf16 bt stream
+        else:
+            lib.zrt_equiv_power_fd.restype = i
+            lib.zrt_equiv_power_fd.argtypes = [
+                p, p, p, p, p, p, p,                # S H1 H2 ib1 ib2 sj wc3
+                p, p, p,                            # pow_part th_part out
+                i, i, i, i, i, i, i, i,             # FP BP KP DP TtP n_tail Tc JMP
+                i, i, ctypes.c_float, i, i, p]      # n_fc n_dg inv bf16 bt stream
+            lib.zrt_equiv_power_fd_blocks_per_sm.restype = i
+            lib.zrt_equiv_power_fd_blocks_per_sm.argtypes = [i] * 5
         lib.zrt_cuda_error_string.restype = ctypes.c_char_p
         lib.zrt_cuda_error_string.argtypes = [i]
         lib._zrt_typed = True
     return lib
 
 
-def _check(cond: bool, msg: str) -> None:
+def _check(cond: bool, msg: str, name: str = "equiv_power") -> None:
     if not cond:
-        raise ValueError(f"equiv_power: {msg}")
+        raise ValueError(f"{name}: {msg}")
+
+
+def _check_inputs(name, S, H1, H2, ib1, ib2, sj, Wc3, n_tail, Tc,
+                  block_b):
+    """The checks both wrappers make on CUDA inputs; returns
+    ``(F, BP, KP, DP, JM)``."""
+    def check(cond, msg):
+        _check(cond, msg, name)
+
+    check(S.device.type == "cuda", f"unsupported device {S.device}")
+    Fb, BP, KP = S.shape
+    check(S.dtype in (torch.float32, torch.bfloat16),
+          f"S dtype {S.dtype} (float32 or bfloat16)")
+    check(H1.dtype == S.dtype and H2.dtype == S.dtype,
+          "S, H1 and H2 must share one dtype")
+    check(H1.ndim == 3 and H1.shape[:2] == (Fb, KP)
+          and H2.shape == H1.shape, "H1/H2 must be (F, KP, DP)")
+    DP = H1.shape[2]
+    check(ib1.dtype == torch.float32 and ib1.shape[0] == Fb
+          and ib2.shape == ib1.shape and ib1.shape[1] >= n_tail + Tc,
+          "ib1/ib2 must be float32 (F, >= n_tail + Tc)")
+    check(KP % K_ALIGN == 0 and DP % TILE_D == 0,
+          f"KP % {K_ALIGN} and DP % {TILE_D} must be 0")
+    check(block_b in FRAME_TILES and BP % block_b == 0,
+          f"block_b must be one of {FRAME_TILES} and divide BP")
+    tensors = [S, H1, H2, ib1, ib2]
+    if Tc:
+        check(sj is not None and Wc3 is not None,
+              "sj and Wc3 are required when Tc > 0")
+        check(sj.dtype == torch.float32 and Wc3.dtype == torch.float32,
+              "sj/Wc3 must be float32")
+        JM = sj.shape[1]
+        check(sj.shape == (BP, JM) and Wc3.shape == (JM, Tc, DP),
+              "sj must be (BP, J*M) and Wc3 (J*M, Tc, DP)")
+        tensors += [sj, Wc3]
+    else:
+        JM = 0
+    check(all(t.device == S.device for t in tensors),
+          "all tensors must be on one device")
+    check(all(t.is_contiguous() for t in tensors),
+          "all tensors must be contiguous")
+    return Fb, BP, KP, DP, JM
+
+
+def _raise_on(lib, err: int, name: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: "
+                           f"{lib.zrt_cuda_error_string(err).decode()}")
+
+
+_FD_SLOTS: dict = {}
+
+
+def _fd_slots(lib, dev, KP: int, fc: int, Tt: int, bf16: int,
+              bt: int) -> int:
+    """Blocks of the fd chunk kernel the whole card holds at once: SMs x
+    the blocks one SM holds, as the runtime reports them (registers,
+    shared memory and threads together)."""
+    key = (dev.index, KP, fc, Tt, bf16, bt)
+    if key not in _FD_SLOTS:
+        with torch.cuda.device(dev):
+            per_sm = lib.zrt_equiv_power_fd_blocks_per_sm(KP, fc, Tt, bf16,
+                                                          bt)
+        if per_sm < 0:
+            _raise_on(lib, -per_sm, "equiv_power_fd")
+        if per_sm == 0:
+            raise RuntimeError(f"equiv_power_fd: no SM holds a block of "
+                               f"frame tile {bt} with {fc} bins a chunk")
+        _FD_SLOTS[key] = per_sm * torch.cuda.get_device_properties(
+            dev).multi_processor_count
+    return _FD_SLOTS[key]
 
 
 def equiv_power(S, H1, H2, ib1, ib2, sj, Wc3, *, n_tail: int, Tc: int,
                 inv: float, block_b: int = 1) -> torch.Tensor:
-    """Fused equiv power, (BP, DP) float32.
+    """Fused equiv power (K1), (BP, DP) float32.
 
     On CPU tensors this is :func:`equiv_power_plain`.  On CUDA tensors it
     launches the ``sm_90a`` kernel (frame tile ``block_b`` in 1/2/4/8) or
@@ -122,43 +281,12 @@ def equiv_power(S, H1, H2, ib1, ib2, sj, Wc3, *, n_tail: int, Tc: int,
     if S.device.type == "cpu":
         return equiv_power_plain(S, H1, H2, ib1, ib2, sj, Wc3,
                                  n_tail=n_tail, Tc=Tc, inv=inv)
-    _check(S.device.type == "cuda", f"unsupported device {S.device}")
-    dev = S.device
-    Fb, BP, KP = S.shape
-    _check(S.dtype in (torch.float32, torch.bfloat16),
-           f"S dtype {S.dtype} (float32 or bfloat16)")
-    _check(H1.dtype == S.dtype and H2.dtype == S.dtype,
-           "S, H1 and H2 must share one dtype")
-    _check(H1.ndim == 3 and H1.shape[:2] == (Fb, KP)
-           and H2.shape == H1.shape, "H1/H2 must be (F, KP, DP)")
-    DP = H1.shape[2]
-    Tt = n_tail + Tc
-    _check(ib1.dtype == torch.float32 and ib1.shape[0] == Fb
-           and ib2.shape == ib1.shape and ib1.shape[1] >= Tt,
-           "ib1/ib2 must be float32 (F, >= n_tail + Tc)")
-    _check(KP % K_ALIGN == 0 and DP % TILE_D == 0,
-           f"KP % {K_ALIGN} and DP % {TILE_D} must be 0")
-    _check(block_b in FRAME_TILES and BP % block_b == 0,
-           f"block_b must be one of {FRAME_TILES} and divide BP")
-    tensors = [S, H1, H2, ib1, ib2]
-    if Tc:
-        _check(sj is not None and Wc3 is not None,
-               "sj and Wc3 are required when Tc > 0")
-        _check(sj.dtype == torch.float32 and Wc3.dtype == torch.float32,
-               "sj/Wc3 must be float32")
-        JM = sj.shape[1]
-        _check(sj.shape == (BP, JM) and Wc3.shape == (JM, Tc, DP),
-               "sj must be (BP, J*M) and Wc3 (J*M, Tc, DP)")
-        tensors += [sj, Wc3]
-    else:
-        JM = 0
-    _check(all(t.device == dev for t in tensors),
-           "all tensors must be on one device")
-    _check(all(t.is_contiguous() for t in tensors),
-           "all tensors must be contiguous")
-    _check(smem_bytes(block_b, Tt, KP, JM) <= SMEM_MAX,
+    Fb, BP, KP, DP, JM = _check_inputs("equiv_power", S, H1, H2, ib1, ib2,
+                                       sj, Wc3, n_tail, Tc, block_b)
+    _check(smem_bytes(block_b, n_tail + Tc, KP, JM) <= SMEM_MAX,
            f"block_b={block_b} needs more than {SMEM_MAX} B shared memory")
-    lib = _lib()
+    dev = S.device
+    lib = _lib("equiv_power")
     out = torch.empty((BP, DP), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -168,14 +296,65 @@ def equiv_power(S, H1, H2, ib1, ib2, sj, Wc3, *, n_tail: int, Tc: int,
             Wc3.data_ptr() if Tc else None, out.data_ptr(),
             Fb, BP, KP, DP, ib1.shape[1], n_tail, Tc, JM, float(inv),
             int(S.dtype == torch.bfloat16), block_b, stream)
-    if err != 0:
-        raise RuntimeError(f"equiv_power kernel launch failed: "
-                           f"{lib.zrt_cuda_error_string(err).decode()}")
+    _raise_on(lib, err, "equiv_power")
     equiv_power.launches += 1
     return out
 
 
 equiv_power.launches = 0
+
+
+def equiv_power_fd(S, H1, H2, ib1, ib2, sj, Wc3, *, n_tail: int, Tc: int,
+                   inv: float, n_fc: int, block_b: int = 1) -> torch.Tensor:
+    """Fused equiv power in the direction-innermost order (TPU K5),
+    (BP, DP) float32: the bins of ``S`` (FP of them) cut into ``n_fc``
+    chunks.
+
+    On CPU tensors this is :func:`equiv_power_fd_plain`.  On CUDA tensors
+    it launches ``csrc/equiv_power_fd.cu`` (the chunk kernel, then the
+    finish kernel, on the current stream) or raises; there is no
+    fallback, to K1 or to the plain version.  ``equiv_power_fd.launches``
+    counts the launches."""
+    name = "equiv_power_fd"
+    if S.device.type == "cpu":
+        return equiv_power_fd_plain(S, H1, H2, ib1, ib2, sj, Wc3,
+                                    n_tail=n_tail, Tc=Tc, inv=inv,
+                                    n_fc=n_fc)
+    FP, BP, KP, DP, JM = _check_inputs(name, S, H1, H2, ib1, ib2, sj, Wc3,
+                                       n_tail, Tc, block_b)
+    _check(1 <= n_fc <= FD_MAX_CHUNKS and FP % n_fc == 0,
+           f"n_fc must be in 1..{FD_MAX_CHUNKS} and divide F={FP}", name)
+    _check(S.data_ptr() % 16 == 0, "S must be 16-byte aligned", name)
+    Tt = n_tail + Tc
+    smem = smem_bytes_fd(block_b, FP // n_fc, Tt, KP, S.element_size())
+    _check(smem <= SMEM_MAX, f"block_b={block_b} with {FP // n_fc} bins a "
+           f"chunk needs more than {SMEM_MAX} B shared memory", name)
+    dev = S.device
+    lib = _lib(name)
+    bf16 = int(S.dtype == torch.bfloat16)
+    n_dg = dir_groups(BP // block_b, n_fc, DP // TILE_D,
+                      _fd_slots(lib, dev, KP, FP // n_fc, Tt, bf16, block_b))
+    # the chunks' partials, the port's form of the TPU's aliased pow0/th0
+    # windows; the finish kernel reads them on the same stream
+    pow_part = torch.empty((n_fc, BP, DP), dtype=torch.float32, device=dev)
+    th_part = torch.empty((n_fc, Tt, BP, DP), dtype=torch.float32,
+                          device=dev)
+    out = torch.empty((BP, DP), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.zrt_equiv_power_fd(
+            S.data_ptr(), H1.data_ptr(), H2.data_ptr(), ib1.data_ptr(),
+            ib2.data_ptr(), sj.data_ptr() if Tc else None,
+            Wc3.data_ptr() if Tc else None, pow_part.data_ptr(),
+            th_part.data_ptr(), out.data_ptr(),
+            FP, BP, KP, DP, ib1.shape[1], n_tail, Tc, JM, n_fc, n_dg,
+            float(inv), bf16, block_b, stream)
+    _raise_on(lib, err, name)
+    equiv_power_fd.launches += 1
+    return out
+
+
+equiv_power_fd.launches = 0
 
 
 class FusedEquivBeamformer:
@@ -192,11 +371,23 @@ class FusedEquivBeamformer:
     * ``"f32"`` / ``"high"`` — FP32 planes and sums (~1e-6 class);
     * ``"bf16"`` — bf16 spectra and planes, FP32 sums (~4e-3 class).
 
-    Raises ``ValueError`` for an unknown mode and when no frame tile's
-    shared memory fits one H100 block.
+    ``sweep``: ``"df"`` (K1: a block loops over every bin of its direction
+    tile) or ``"fd"`` (direction innermost: :func:`equiv_power_fd` over
+    ``n_fc`` frequency chunks).  ``plan_override=(frame tile, n_fc)``, the
+    JAX keyword, caps the frame tile and fixes the chunks; without it fd
+    takes the fewest chunks that fit one block (:func:`fd_chunks`) and df
+    one chunk.  F pads to ``FP = fc * n_fc`` with zero planes and bases,
+    which add exactly nothing.  A plan of one chunk runs K1.
+
+    Raises ``ValueError`` for an unknown mode or sweep and when no frame
+    tile's shared memory fits one H100 block.
     """
 
-    def __init__(self, t, mode: Optional[str] = None):
+    def __init__(self, t, mode: Optional[str] = None,
+                 plan_override: Optional[tuple] = None, sweep: str = "df"):
+        if sweep not in ("df", "fd"):
+            raise ValueError(f"sweep must be 'df' or 'fd', got {sweep!r}")
+        self.sweep = sweep
         et = t if isinstance(t, EquivFreqTables) else make_equiv_tables(t)
         if mode is None:
             mode = {"high": "high", "highest": "f32"}.get(et.precision,
@@ -223,14 +414,34 @@ class FusedEquivBeamformer:
         J = len(et.corr_js) if Tc else 0
         self.JM = J * M
 
-        # Hopper plan: frame tiles whose shared memory fits one block
+        # Hopper plan: the largest frame tile and the frequency chunks,
+        # then the frame tiles whose shared memory fits one block
+        itemsize = 2 if mode == "bf16" else 4
+        if plan_override is not None:
+            bt_max, n_fc = (int(x) for x in plan_override)
+            if bt_max not in FRAME_TILES or not 1 <= n_fc <= FD_MAX_CHUNKS:
+                raise ValueError(
+                    f"plan_override must be (one of {FRAME_TILES}, n_fc in "
+                    f"1..{FD_MAX_CHUNKS}), got {plan_override!r}")
+        else:
+            bt_max = FRAME_TILES[0]
+            n_fc = (fd_chunks(Fb, Tt, self.KP, itemsize) if sweep == "fd"
+                    else 1)
+        self.n_fc = n_fc
+        self.fc = -(-Fb // n_fc)
+        self.FP = self.fc * n_fc
+        # the fd kernel runs for an fd plan of more than one chunk
+        self.runs_fd = sweep == "fd" and n_fc > 1
         self.frame_tiles = tuple(
-            bt for bt in FRAME_TILES
-            if smem_bytes(bt, Tt, self.KP, self.JM) <= SMEM_MAX)
+            bt for bt in FRAME_TILES if bt <= bt_max and (
+                smem_bytes_fd(bt, self.fc, Tt, self.KP, itemsize)
+                if self.runs_fd else smem_bytes(bt, Tt, self.KP, self.JM))
+            <= SMEM_MAX)
         if not self.frame_tiles:
             raise ValueError(
                 f"equiv kernel: no shared-memory plan for Tt={Tt} "
-                f"KP={self.KP} J*M={self.JM}")
+                f"KP={self.KP} J*M={self.JM} (sweep {sweep}, {n_fc} "
+                f"chunks)")
 
         # --- device tables: bin-major, sqrt(cf)-scaled, padded ----------
         cf = et.cf.double()
@@ -239,15 +450,21 @@ class FusedEquivBeamformer:
         Hr, Hi = et.H.real, et.H.imag                               # (D, M, F)
 
         def plane(a, b):
-            # (D, 2M, F) -> sqrt(cf)-scaled (F, KP, DP)
+            # (D, 2M, F) -> sqrt(cf)-scaled (FP, KP, DP)
             h = (torch.cat([a, b], dim=1) * scf).permute(2, 1, 0)
-            h = F_.pad(h, (0, self.DP - D, 0, self.KP - 2 * M))
+            h = F_.pad(h, (0, self.DP - D, 0, self.KP - 2 * M,
+                           0, self.FP - Fb))
             return h.to(self.plane_dtype).contiguous()
+
+        def basis(ib):
+            # (F, Tt) / sqrt(cf) -> (FP, Tt)
+            return F_.pad(ib * inv_scf[:, None],
+                          (0, 0, 0, self.FP - Fb)).contiguous()
 
         self.H1 = plane(Hr, -Hi)
         self.H2 = plane(Hi, Hr)
-        self.ib1 = (et.ib_re * inv_scf[:, None]).contiguous()
-        self.ib2 = (et.ib_im * inv_scf[:, None]).contiguous()
+        self.ib1 = basis(et.ib_re)
+        self.ib2 = basis(et.ib_im)
         if Tc:
             # (J, D, Tc, M) -> (J*M, Tc, DP)
             w3 = et.Wc.permute(0, 3, 2, 1).reshape(J * M, Tc, D)
@@ -277,8 +494,8 @@ class FusedEquivBeamformer:
               else signals[:, :M, :]).float()                       # (B, M, N)
         spec = torch.fft.rfft(sf, n=self.L)                         # (B, M, F)
         S = torch.cat([spec.real, spec.imag], dim=1).permute(2, 0, 1)
-        S = F_.pad(S, (0, self.KP - 2 * M, 0, BP - B))
-        S = S.to(self.plane_dtype).contiguous()                     # (F, BP, KP)
+        S = F_.pad(S, (0, self.KP - 2 * M, 0, BP - B, 0, self.FP - self.F))
+        S = S.to(self.plane_dtype).contiguous()                     # (FP, BP, KP)
         if self.Tc:
             sj = torch.stack([sf[:, :, j] for j in self.corr_js], dim=1)
             sj = F_.pad(sj.reshape(B, self.JM), (0, 0, 0, BP - B))
@@ -294,8 +511,9 @@ class FusedEquivBeamformer:
             signals = signals[None]
         B = signals.shape[0]
         S, sj, bt = self.kernel_inputs(signals)
-        power = equiv_power(S, self.H1, self.H2, self.ib1, self.ib2, sj,
-                            self.Wc3, n_tail=self.n_tail, Tc=self.Tc,
-                            inv=self.inv, block_b=bt)               # (BP, DP)
+        args = (S, self.H1, self.H2, self.ib1, self.ib2, sj, self.Wc3)
+        kw = dict(n_tail=self.n_tail, Tc=self.Tc, inv=self.inv, block_b=bt)
+        power = (equiv_power_fd(*args, n_fc=self.n_fc, **kw) if self.runs_fd
+                 else equiv_power(*args, **kw))                     # (BP, DP)
         power = power[:B, :self.D].reshape(B, self.res_x, self.res_y)
         return power[0] if squeeze else power

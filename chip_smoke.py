@@ -9,15 +9,19 @@ Phases (any failure raises, so the exit code is non-zero):
 
 1. Card and build: ``nvidia-smi`` name and power limit; the three kernel
    sources built by three ``nvcc`` processes started together, with the
-   ptxas register/spill reports of the time-domain and fd kernels.
+   ptxas register/spill reports of all three.
 2. The fused equiv-power kernel (K1) against its plain torch version on
    the card, at ``Config()`` (256 mics, 57x32 grid) for lerp and hybrid,
-   in modes f32/high/bf16, at B=1 and B=37, with CUDA-event times of both
-   and of the plain version's ``torch.bmm`` pair alone.
+   in modes f32/high/bf16, at B=1 (the live stage), B=16 (the full-rate
+   batch) and B=37, with CUDA-event times of both, of the two-plane
+   ``torch.bmm`` pair (continuity with the first kernel) and of the
+   one-plane ``torch.bmm`` of the 2B spectra rows; the restated bound and
+   the kernel's share of it, each mode's route (FP32 FMA or tensor cores)
+   and the table bytes the class holds.
 3. The direction-innermost equiv kernel (K5, ``sweep="fd"``) against its
    plain version and against K1 at ``Config()`` lerp and hybrid,
    f32/high/bf16, B=1 and B=16, on the auto fd plan (more than one
-   frequency chunk), with CUDA-event times and the ``torch.bmm`` pair.
+   frequency chunk), with the same times, bound and route.
 4. The fused time-domain kernel (K2/K3/K4: one kernel over planned tap
    windows) against its plain version at ``Config()`` lerp and hybrid,
    f32/high/bf16, B=1 and B=16, and against the exact FP32 product, with
@@ -73,9 +77,10 @@ BF16_CLASS = 3e-2          # bf16 tables vs the exact FP32 product
 E2E_RTOL = 1e-4            # kernel path vs plain FP32 steered_power
 N_HEATMAPS = 20
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, FP32 FLOP/s outside the
-# tensor cores (both kernels run FP32 FMAs on the CUDA cores)
+# tensor cores, dense bf16 FLOP/s on the tensor cores
 HBM_BPS = 3.35e12
 FP32_FLOPS = 67e12
+BF16_TC_FLOPS = 989e12
 FULLRATE_BATCH = 16
 FULLRATE_CHANNELS = 192    # the 3 connected arrays of Config()
 FULLRATE_SECONDS = 4.0
@@ -99,12 +104,65 @@ def peak(m: torch.Tensor) -> tuple:
     return tuple(int(i) for i in np.unravel_index(int(m.argmax()), m.shape))
 
 
-def bound(nbytes: float, flops: float) -> dict:
+def bound(nbytes: float, flops: float, tc_flops: float = 0.0) -> dict:
     """The least time the card could take: the larger of the bytes over
-    the HBM rate and the operations over the FP32 rate."""
-    t_b, t_f = nbytes / HBM_BPS * 1e3, flops / FP32_FLOPS * 1e3
+    the HBM rate and the operations over their rate (FP32 on the CUDA
+    cores; ``tc_flops`` bf16 on the tensor cores)."""
+    t_b = nbytes / HBM_BPS * 1e3
+    t_f = (flops / FP32_FLOPS + tc_flops / BF16_TC_FLOPS) * 1e3
     return dict(bound_ms=max(t_b, t_f),
                 bound_by="bytes" if t_b >= t_f else "operations")
+
+
+def equiv_bound(fk, B: int) -> dict:
+    """The equiv kernels' bound, restated from the work the maps need:
+    bytes of H1 once in the plane type, the B frames' spectra rows, the
+    bases, the sj rows, the list's entries and the output (the F bins, not
+    the zero bins that pad them to chunks); operations of the one-plane
+    product (2 * 2B * 2M * D * F; on the tensor cores in bf16), Parseval,
+    the tail/head fold (2 * 2B * Tt * D * F) and the corrections
+    (2 * B * nnz), the rest FP32."""
+    isz = 2 if fk.plane_dtype == torch.bfloat16 else 4
+    F, D, M, Tt = fk.F, fk.D, fk.M, fk.Tt
+    nnz = 0 if fk.wc is None else fk.wc.val.numel()
+    list_bytes = 0 if fk.wc is None else nbytes(fk.wc.ptr) + 8 * nnz
+    nb = (isz * F * (fk.KP * fk.DP + B * fk.KS) + 4 * 2 * F * Tt
+          + 4 * B * fk.JM + list_bytes + 4 * B * D)
+    prod = 2 * 2 * B * 2 * M * D * F
+    rest = 4 * B * D * F + 2 * 2 * B * Tt * D * F + 2 * B * nnz
+    if fk.plane_dtype == torch.bfloat16:
+        return bound(nb, rest, prod)
+    return bound(nb, prod + rest)
+
+
+def describe(ek, fk) -> str:
+    """The route of the class's mode and the table bytes it holds."""
+    h1 = fk.H1.numel() * fk.H1.element_size()
+    nnz = 0 if fk.wc is None else fk.wc.val.numel()
+    return (f"route {ek.route(fk.plane_dtype)}; tables held "
+            f"{fk.table_bytes / 1e9:.4f} GB (H1 {h1 / 1e9:.4f} GB, list "
+            f"{nnz} entries)")
+
+
+def bmm_yardsticks(fk, S, iters: int) -> tuple:
+    """(two-plane ``torch.bmm`` pair ms, one-plane ``torch.bmm`` ms) on
+    the same spectra: the pair in FP32 on the planes [Hr | -Hi] and
+    [Hi | Hr] as the first kernel took them; the one-plane product of the
+    2BP rows with H1 in the plane type.  The port never calls either."""
+    from zybo_rt_sampler_image_detection_torch.ops import equiv_kernel as ek
+
+    H = ek.dense_plane(fk.H1[:, :fk.F])
+    MP = fk.MP
+    Hf = H.float()
+    H2 = torch.cat([-Hf[:, MP:], Hf[:, :MP]], dim=1)
+    Sf = S[:fk.F, :, :fk.KP].float()
+    pair_ms = time_ms(lambda: (torch.bmm(Sf, Hf), torch.bmm(Sf, H2)), iters)
+    del Hf, H2, Sf
+    rows = ek.spectra_rows(S[:fk.F], fk.KP).contiguous()
+    H = H.contiguous()
+    one_ms = time_ms(lambda: torch.bmm(rows, H), iters)
+    del rows, H
+    return pair_ms, one_ms
 
 
 def nbytes(*tensors) -> int:
@@ -157,7 +215,7 @@ def phase_card_and_build():
           f"loaded in {time.perf_counter() - t0:.2f} s (nvcc "
           + ", ".join(f"{n} {_build.build_seconds.get(n, 0.0):.2f} s"
                       for n in names) + ")")
-    for name in ("time_power", "equiv_power_fd"):
+    for name in names:
         report = os.path.join(_build._build_dir(), f"{name}.ptxas.txt")
         if os.path.exists(report):      # absent when the build was cached
             with open(report) as f:
@@ -182,11 +240,12 @@ def phase_kernel_vs_plain(card: str) -> dict:
         td = beamform.steered_power(frames, tables)      # exact FP32 product
         for mode in ("f32", "high", "bf16"):
             fk = ek.FusedEquivBeamformer(tables, mode=mode)
-            for B in (1, 37):
+            print(f"[K1] {algo:6s} {mode:4s}: {describe(ek, fk)}")
+            for B in (1, FULLRATE_BATCH, 37):
                 x = frames[:B]
                 S, sj, bt = fk.kernel_inputs(x)
                 kw = dict(n_tail=fk.n_tail, Tc=fk.Tc, inv=fk.inv)
-                args = (S, fk.H1, fk.H2, fk.ib1, fk.ib2, sj, fk.Wc3)
+                args = (S, fk.H1, fk.ib1, fk.ib2, sj, fk.wc)
                 got = ek.equiv_power(*args, block_b=bt, **kw)
                 ref = ek.equiv_power_plain(*args, **kw)
                 torch.cuda.synchronize()
@@ -200,33 +259,26 @@ def phase_kernel_vs_plain(card: str) -> dict:
                 same_peak = all(peak(got[b]) == peak(ref[b])
                                 for b in range(B))
                 iters = 20 if B == 1 else 5
-                Sf, H1f, H2f = S.float(), fk.H1.float(), fk.H2.float()
-                lib_ms = time_ms(lambda: (torch.bmm(Sf, H1f),
-                                          torch.bmm(Sf, H2f)), iters)
-                del Sf, H1f, H2f
+                pair_ms, one_ms = bmm_yardsticks(fk, S, iters)
                 k_ms, p_ms = in_turns(
                     lambda: ek.equiv_power_plain(*args, **kw),
                     lambda: ek.equiv_power(*args, block_b=bt, **kw), iters)
-                # bytes: every input once, the output once; operations:
-                # the two plane products, Parseval, the tail/head inverse
-                # DFT and the head corrections, as FP32 FMAs
-                BP, DP, KP = S.shape[1], fk.H1.shape[2], S.shape[2]
-                flops = 2 * BP * DP * (2 * fk.F * KP + 2 * fk.F
-                                       + 2 * fk.F * fk.Tt + fk.JM * fk.Tc)
-                bd = bound(nbytes(*args) + 4 * BP * DP, flops)
+                bd = equiv_bound(fk, B)
                 ok = err <= TOL[mode] and (mode != "bf16" or same_peak)
                 print(f"[K1] {algo:6s} {mode:4s} B={B:2d} bt={bt} "
                       f"F={fk.F} Tt={fk.Tt}: max rel err vs plain {err:.3e} "
                       f"(tol {TOL[mode]:.0e}) max abs {abs_err:.3e} "
                       f"same peak {same_peak} | vs time-domain "
                       f"{err_td:.3e} | kernel {k_ms:.4f} ms plain "
-                      f"{p_ms:.4f} ms bmm pair {lib_ms:.4f} ms bound "
-                      f"{bd['bound_ms']:.4f} ms ({bd['bound_by']}) [{card}]")
+                      f"{p_ms:.4f} ms bmm pair (FP32) {pair_ms:.4f} ms "
+                      f"one-plane bmm {one_ms:.4f} ms | bound "
+                      f"{bd['bound_ms']:.4f} ms ({bd['bound_by']}, "
+                      f"{bd['bound_ms'] / k_ms:.1%} of it) [{card}]")
                 assert ok, f"kernel disagrees with plain: {algo} {mode} B={B}"
                 if (algo, mode, B) == ("lerp", "f32", 1):
                     # the main path's shape: Config() lerp, highest -> f32
                     main = dict(max_abs_err=abs_err, ms=k_ms, plain_ms=p_ms,
-                                library_ms=lib_ms, **bd)
+                                library_ms=one_ms, **bd)
             del fk
         del tables, td
         torch.cuda.empty_cache()
@@ -252,10 +304,11 @@ def phase_fd_vs_plain(card: str) -> dict:
             fk = ek.FusedEquivBeamformer(tables, mode=mode, sweep="fd")
             # the path must run K5, not K1's single-chunk case
             assert fk.runs_fd and fk.n_fc > 1, (algo, mode, fk.n_fc)
+            print(f"[K5] {algo:6s} {mode:4s}: {describe(ek, fk)}")
             for B in (1, FULLRATE_BATCH):
                 S, sj, bt = fk.kernel_inputs(frames[:B])
                 kw = dict(n_tail=fk.n_tail, Tc=fk.Tc, inv=fk.inv)
-                args = (S, fk.H1, fk.H2, fk.ib1, fk.ib2, sj, fk.Wc3)
+                args = (S, fk.H1, fk.ib1, fk.ib2, sj, fk.wc)
 
                 def kern():
                     return ek.equiv_power_fd(*args, n_fc=fk.n_fc,
@@ -279,34 +332,29 @@ def phase_fd_vs_plain(card: str) -> dict:
                 same_peak = all(peak(got[b]) == peak(ref[b])
                                 and peak(got[b]) == peak(k1[b])
                                 for b in range(B))
-                iters = 10 if B == 1 else 3
-                Sf, H1f, H2f = S.float(), fk.H1.float(), fk.H2.float()
-                lib_ms = time_ms(lambda: (torch.bmm(Sf, H1f),
-                                          torch.bmm(Sf, H2f)), iters)
-                del Sf, H1f, H2f
+                iters = 10 if B == 1 else 5
+                pair_ms, one_ms = bmm_yardsticks(fk, S, iters)
                 k_ms, p_ms = in_turns(plain, kern, iters)
                 k1_ms = time_ms(k1_kern, iters)
                 # the same work as K1, so K1's bound: the F bins, not the
                 # zero bins that pad them to n_fc chunks
-                BP, DP, KP = S.shape[1], fk.H1.shape[2], S.shape[2]
-                flops = 2 * BP * DP * (2 * fk.F * KP + 2 * fk.F
-                                       + 2 * fk.F * fk.Tt + fk.JM * fk.Tc)
-                bd = bound(nbytes(*(a[:fk.F] for a in args[:5]), sj, fk.Wc3)
-                           + 4 * BP * DP, flops)
+                bd = equiv_bound(fk, B)
                 print(f"[K5] {algo:6s} {mode:4s} B={B:2d} bt={bt} "
                       f"n_fc={fk.n_fc} fc={fk.fc} F={fk.F}: max rel err vs "
                       f"plain {err:.3e} vs K1 {err_k1:.3e} (tol "
                       f"{TOL[mode]:.0e}) max abs {abs_err:.3e} same peak "
                       f"{same_peak} | kernel {k_ms:.4f} ms plain "
-                      f"{p_ms:.4f} ms K1 {k1_ms:.4f} ms bmm pair "
-                      f"{lib_ms:.4f} ms bound {bd['bound_ms']:.4f} ms "
-                      f"({bd['bound_by']}) [{card}]")
+                      f"{p_ms:.4f} ms K1 {k1_ms:.4f} ms bmm pair (FP32) "
+                      f"{pair_ms:.4f} ms one-plane bmm {one_ms:.4f} ms | "
+                      f"bound {bd['bound_ms']:.4f} ms ({bd['bound_by']}, "
+                      f"{bd['bound_ms'] / k_ms:.1%} of it) | route "
+                      f"{ek.route(fk.plane_dtype)} [{card}]")
                 ok = (err <= TOL[mode] and err_k1 <= TOL[mode]
                       and (mode != "bf16" or same_peak))
                 assert ok, f"fd kernel disagrees: {algo} {mode} B={B}"
                 if (algo, mode, B) == ("lerp", "f32", FULLRATE_BATCH):
                     main = dict(max_abs_err=abs_err, ms=k_ms, plain_ms=p_ms,
-                                library_ms=lib_ms, **bd)
+                                library_ms=one_ms, **bd)
             del fk
         del tables
         torch.cuda.empty_cache()

@@ -39,10 +39,10 @@ def _frames(cfg, B, seed=0):
             * 0.1).astype(np.float32)
 
 
-def _run(fused, x):
-    S, sj, bt = fused.kernel_inputs(x)
+def _run(fused, x, block_b=None):
+    S, sj, bt = fused.kernel_inputs(x, block_b)
     kw = dict(n_tail=fused.n_tail, Tc=fused.Tc, inv=fused.inv)
-    args = (S, fused.H1, fused.H2, fused.ib1, fused.ib2, sj, fused.Wc3)
+    args = (S, fused.H1, fused.ib1, fused.ib2, sj, fused.wc)
     before = tk.equiv_power.launches
     got = tk.equiv_power(*args, block_b=bt, **kw)
     torch.cuda.synchronize()
@@ -50,31 +50,66 @@ def _run(fused, x):
     return got, tk.equiv_power_plain(*args, **kw)
 
 
+def _tiles(fused, B):
+    """Every frame tile the plan can take for B frames: the planned tiles
+    up to the one covering B, and the tile the class picks."""
+    cover = min((bt for bt in fused.frame_tiles if bt >= B),
+                default=fused.frame_tiles[0])
+    return sorted({bt for bt in fused.frame_tiles if bt <= cover}
+                  | {fused.frame_tile(B)})
+
+
 @pytest.mark.parametrize("mode", ["f32", "high", "bf16"])
 @pytest.mark.parametrize("algorithm", ["lerp", "hybrid", "convolve"])
-@pytest.mark.parametrize("B", [1, 2, 3, 11])
+@pytest.mark.parametrize("B", [1, 2, 3, 11, 16, 37])
 def test_kernel_matches_plain_tiny(cuda, mode, algorithm, B):
     cfg = Config.tiny()
     t = tb.make_tables(cfg, algorithm, cache=False, device=cuda)
     fused = tk.FusedEquivBeamformer(t, mode=mode)
-    got, ref = _run(fused, torch.from_numpy(_frames(cfg, B)).to(cuda))
-    np.testing.assert_allclose(got.cpu().numpy(), ref.cpu().numpy(),
-                               rtol=TOL[mode], atol=1e-14)
+    x = torch.from_numpy(_frames(cfg, B)).to(cuda)
+    for bt in _tiles(fused, B):
+        got, ref = _run(fused, x, bt)
+        np.testing.assert_allclose(got.cpu().numpy(), ref.cpu().numpy(),
+                                   rtol=TOL[mode], atol=1e-14,
+                                   err_msg=f"frame tile {bt}")
 
 
+_REF = {}
+
+
+def _ref_fused(cuda, algorithm, mode, sweep="df"):
+    """``FusedEquivBeamformer`` at ``Config()``, kept across tests (one
+    at a time: the tables are large)."""
+    key = (algorithm, mode, sweep)
+    if key not in _REF:
+        _REF.clear()
+        t = tb.make_tables(Config(), algorithm, device=cuda)
+        _REF[key] = (t, tk.FusedEquivBeamformer(t, mode=mode, sweep=sweep))
+    return _REF[key]
+
+
+@pytest.mark.parametrize("B", [1, 16, 37])
+@pytest.mark.parametrize("mode", ["f32", "high", "bf16"])
 @pytest.mark.parametrize("algorithm", ["lerp", "hybrid"])
-def test_kernel_matches_plain_reference_shape(cuda, algorithm):
+def test_kernel_matches_plain_reference_shape(cuda, algorithm, mode, B):
     cfg = Config()
-    t = tb.make_tables(cfg, algorithm, device=cuda)
-    fused = tk.FusedEquivBeamformer(t, mode="f32")
-    x = torch.from_numpy(_frames(cfg, 5) * 0.5).to(cuda)
-    got, ref = _run(fused, x)
-    np.testing.assert_allclose(got.cpu().numpy(), ref.cpu().numpy(),
-                               rtol=TOL["f32"], atol=1e-14)
-    power = fused(x)
-    exact = tb.steered_power(x, t)
-    np.testing.assert_allclose(power.cpu().numpy(), exact.cpu().numpy(),
-                               rtol=1e-4, atol=1e-14)
+    t, fused = _ref_fused(cuda, algorithm, mode)
+    x = torch.from_numpy(_frames(cfg, B) * 0.5).to(cuda)
+    for bt in _tiles(fused, B):
+        got, ref = _run(fused, x, bt)
+        got, ref = got.cpu().numpy(), ref.cpu().numpy()
+        if mode == "bf16":
+            g, r = got[:B, :fused.D], ref[:B, :fused.D]
+            assert np.abs(g / r - 1).max() <= TOL[mode], bt
+            assert (g.argmax(1) == r.argmax(1)).all(), bt
+        else:
+            np.testing.assert_allclose(got, ref, rtol=TOL[mode], atol=1e-14,
+                                       err_msg=f"frame tile {bt}")
+    if mode == "f32":
+        power = fused(x)
+        exact = tb.steered_power(x, t)
+        np.testing.assert_allclose(power.cpu().numpy(), exact.cpu().numpy(),
+                                   rtol=1e-4, atol=1e-14)
 
 
 def test_wrapper_rejects_bad_inputs(cuda):
@@ -82,15 +117,76 @@ def test_wrapper_rejects_bad_inputs(cuda):
     fused = tk.FusedEquivBeamformer(t, mode="f32")
     S, sj, bt = fused.kernel_inputs(torch.zeros(3, 16, 64, device=cuda))
     kw = dict(n_tail=fused.n_tail, Tc=fused.Tc, inv=fused.inv)
+    rest = (fused.ib1, fused.ib2, sj)
     with pytest.raises(ValueError, match="dtype"):
-        tk.equiv_power(S.double(), fused.H1, fused.H2, fused.ib1, fused.ib2,
-                       sj, fused.Wc3, block_b=bt, **kw)
+        tk.equiv_power(S.double(), fused.H1, *rest, fused.wc, block_b=bt,
+                       **kw)
     with pytest.raises(ValueError, match="block_b"):
-        tk.equiv_power(S, fused.H1, fused.H2, fused.ib1, fused.ib2, sj,
-                       fused.Wc3, block_b=8, **kw)
+        tk.equiv_power(S, fused.H1, *rest, fused.wc, block_b=16, **kw)
     with pytest.raises(ValueError, match="device"):
-        tk.equiv_power(S, fused.H1.cpu(), fused.H2, fused.ib1, fused.ib2,
-                       sj, fused.Wc3, block_b=bt, **kw)
+        tk.equiv_power(S, fused.H1.cpu(), *rest, fused.wc, block_b=bt, **kw)
+    with pytest.raises(ValueError, match="H1"):
+        tk.equiv_power(S, fused.H1[:, :, :64].contiguous(), *rest, fused.wc,
+                       block_b=bt, **kw)
+
+
+def test_wrappers_reject_bad_correction_list(cuda):
+    """The sparse head-correction list: a wrong shape or dtype of any of
+    its three arrays raises in both wrappers."""
+    t = tb.make_tables(Config.tiny(), "hybrid", cache=False, device=cuda)
+    for sweep, plan, fn, extra in (
+            ("df", None, tk.equiv_power, {}),
+            ("fd", (8, 3), tk.equiv_power_fd, {"n_fc": 3})):
+        fused = tk.FusedEquivBeamformer(t, mode="f32", plan_override=plan,
+                                        sweep=sweep)
+        S, sj, bt = fused.kernel_inputs(torch.zeros(3, 16, 64, device=cuda))
+        kw = dict(n_tail=fused.n_tail, Tc=fused.Tc, inv=fused.inv,
+                  block_b=bt, **extra)
+        wc = fused.wc
+        bad = [wc._replace(ptr=wc.ptr.long()), wc._replace(idx=wc.idx.long()),
+               wc._replace(val=wc.val.double()),
+               wc._replace(ptr=wc.ptr[:-1].contiguous()),
+               wc._replace(val=wc.val[:-1].contiguous()), tuple(wc)]
+        for b in bad:
+            with pytest.raises(ValueError, match="wc"):
+                fn(S, fused.H1, fused.ib1, fused.ib2, sj, b, **kw)
+        with pytest.raises(ValueError, match="wc"):
+            fn(S, fused.H1, fused.ib1, fused.ib2, sj, None, **kw)
+
+
+@pytest.mark.parametrize("mode", ["f32", "high", "bf16"])
+def test_bf16_takes_tensor_cores(cuda, mode):
+    """The route the library reports for the launch: bf16 on the tensor
+    cores (mma.sync), f32/high FP32 FMAs on the CUDA cores."""
+    t = tb.make_tables(Config.tiny(), "lerp", cache=False, device=cuda)
+    fused = tk.FusedEquivBeamformer(t, mode=mode)
+    fused(torch.from_numpy(_frames(Config.tiny(), 2)).to(cuda))
+    torch.cuda.synchronize()
+    route = tk.equiv_power.last_route
+    assert route == tk.route(fused.plane_dtype)
+    if mode == "bf16":
+        assert route.startswith("tensor cores") and "mma" in route
+    else:
+        assert route.startswith("CUDA cores")
+
+
+@pytest.mark.parametrize("bf16", [0, 1])
+@pytest.mark.parametrize("bt", [1, 2, 4, 8, 16])
+def test_k1_blocks_per_sm(cuda, bf16, bt):
+    """The runtime's occupancy of K1 at the reference shape: at least one
+    block an SM with a two-stage ring; bad arguments come back as a
+    negated CUDA error; the plan's ring fits."""
+    lib = tk._lib("equiv_power")
+    n = lib.zrt_equiv_power_blocks_per_sm(bf16, bt, 106, 512, 768, 2)
+    assert 1 <= n <= 8
+    assert lib.zrt_equiv_power_blocks_per_sm(bf16, 3, 106, 512, 768, 2) < 0
+    assert lib.zrt_equiv_power_blocks_per_sm(bf16, bt, 106, 500, 768, 2) < 0
+    assert lib.zrt_equiv_power_blocks_per_sm(bf16, bt, 106, 512, 768, 9) < 0
+    waves, stages = tk._k1_plan(torch.device("cuda", 0), bf16, bt, 106, 512,
+                                768, 228)
+    assert waves >= 1 and 2 <= stages <= tk.MAX_STAGES
+    assert tk.smem_bytes(bt, 106, 512, 768, 2 if bf16 else 4,
+                         stages) <= tk.SMEM_MAX
 
 
 def test_auto_policy_picks_kernel_at_high(cuda):
@@ -233,11 +329,11 @@ def test_fused_policy_launches_kernel(cuda, monkeypatch):
 # --- direction-innermost equiv power (csrc/equiv_power_fd.cu) -------------
 
 
-def _run_fd(fused, x):
+def _run_fd(fused, x, block_b=None):
     """The fd kernel, its plain version and K1 on the same inputs."""
-    S, sj, bt = fused.kernel_inputs(x)
+    S, sj, bt = fused.kernel_inputs(x, block_b)
     kw = dict(n_tail=fused.n_tail, Tc=fused.Tc, inv=fused.inv)
-    args = (S, fused.H1, fused.H2, fused.ib1, fused.ib2, sj, fused.Wc3)
+    args = (S, fused.H1, fused.ib1, fused.ib2, sj, fused.wc)
     before = tk.equiv_power_fd.launches
     got = tk.equiv_power_fd(*args, n_fc=fused.n_fc, block_b=bt, **kw)
     torch.cuda.synchronize()
@@ -249,38 +345,51 @@ def _run_fd(fused, x):
 @pytest.mark.parametrize("n_fc", [2, 3])
 @pytest.mark.parametrize("mode", ["f32", "high", "bf16"])
 @pytest.mark.parametrize("algorithm", ["lerp", "hybrid", "convolve"])
-@pytest.mark.parametrize("B", [1, 3, 11])
+@pytest.mark.parametrize("B", [1, 3, 11, 16])
 def test_fd_kernel_matches_plain_tiny(cuda, n_fc, mode, algorithm, B):
     """The fd kernel against its plain version and against K1, at the
-    mode's gate (the sums run in other orders, never bit-identical)."""
+    mode's gate (the sums run in other orders, never bit-identical), at
+    every frame tile the plan can take."""
     cfg = Config.tiny()
     t = tb.make_tables(cfg, algorithm, cache=False, device=cuda)
-    fused = tk.FusedEquivBeamformer(t, mode=mode, plan_override=(8, n_fc),
+    fused = tk.FusedEquivBeamformer(t, mode=mode, plan_override=(16, n_fc),
                                     sweep="fd")
     assert fused.runs_fd and fused.FP == fused.fc * n_fc >= fused.F
-    got, ref, k1 = _run_fd(fused, torch.from_numpy(_frames(cfg, B)).to(cuda))
-    np.testing.assert_allclose(got.cpu().numpy(), ref.cpu().numpy(),
-                               rtol=TOL[mode], atol=1e-14)
-    np.testing.assert_allclose(got.cpu().numpy(), k1.cpu().numpy(),
-                               rtol=TOL[mode], atol=1e-14)
+    x = torch.from_numpy(_frames(cfg, B)).to(cuda)
+    for bt in _tiles(fused, B):
+        got, ref, k1 = _run_fd(fused, x, bt)
+        for other in (ref, k1):
+            np.testing.assert_allclose(got.cpu().numpy(),
+                                       other.cpu().numpy(), rtol=TOL[mode],
+                                       atol=1e-14, err_msg=f"frame tile {bt}")
 
 
+@pytest.mark.parametrize("B", [1, 16])
+@pytest.mark.parametrize("mode", ["f32", "high", "bf16"])
 @pytest.mark.parametrize("algorithm", ["lerp", "hybrid"])
-def test_fd_kernel_matches_plain_reference_shape(cuda, algorithm):
-    """``Config()`` on the auto fd plan (more than one chunk)."""
+def test_fd_kernel_matches_plain_reference_shape(cuda, algorithm, mode, B):
+    """``Config()`` on the auto fd plan (more than one chunk), every frame
+    tile the plan can take."""
     cfg = Config()
-    t = tb.make_tables(cfg, algorithm, device=cuda)
-    fused = tk.FusedEquivBeamformer(t, mode="f32", sweep="fd")
+    t, fused = _ref_fused(cuda, algorithm, mode, "fd")
     assert fused.runs_fd and fused.n_fc > 1
-    x = torch.from_numpy(_frames(cfg, 5) * 0.5).to(cuda)
-    got, ref, k1 = _run_fd(fused, x)
-    for other in (ref, k1):
-        np.testing.assert_allclose(got.cpu().numpy(), other.cpu().numpy(),
-                                   rtol=TOL["f32"], atol=1e-14)
-    power = fused(x)
-    exact = tb.steered_power(x, t)
-    np.testing.assert_allclose(power.cpu().numpy(), exact.cpu().numpy(),
-                               rtol=1e-4, atol=1e-14)
+    x = torch.from_numpy(_frames(cfg, B) * 0.5).to(cuda)
+    for bt in _tiles(fused, B):
+        got, ref, k1 = _run_fd(fused, x, bt)
+        for other in (ref, k1):
+            g, r = got.cpu().numpy(), other.cpu().numpy()
+            if mode == "bf16":
+                g, r = g[:B, :fused.D], r[:B, :fused.D]
+                assert np.abs(g / r - 1).max() <= TOL[mode], bt
+                assert (g.argmax(1) == r.argmax(1)).all(), bt
+            else:
+                np.testing.assert_allclose(g, r, rtol=TOL[mode], atol=1e-14,
+                                           err_msg=f"frame tile {bt}")
+    if mode == "f32":
+        power = fused(x)
+        exact = tb.steered_power(x, t)
+        np.testing.assert_allclose(power.cpu().numpy(), exact.cpu().numpy(),
+                                   rtol=1e-4, atol=1e-14)
 
 
 def test_fd_wrapper_rejects_bad_inputs(cuda):
@@ -289,7 +398,7 @@ def test_fd_wrapper_rejects_bad_inputs(cuda):
                                     sweep="fd")
     S, sj, bt = fused.kernel_inputs(torch.zeros(3, 16, 64, device=cuda))
     kw = dict(n_tail=fused.n_tail, Tc=fused.Tc, inv=fused.inv)
-    args = (fused.H1, fused.H2, fused.ib1, fused.ib2, sj, fused.Wc3)
+    args = (fused.H1, fused.ib1, fused.ib2, sj, fused.wc)
     with pytest.raises(ValueError, match="dtype"):
         tk.equiv_power_fd(S.double(), *args, n_fc=3, block_b=bt, **kw)
     with pytest.raises(ValueError, match="block_b"):
@@ -309,13 +418,16 @@ def test_fd_wrapper_rejects_bad_inputs(cuda):
 def test_fd_blocks_per_sm(cuda, bf16, bt):
     """The runtime's occupancy of the chunk kernel at the reference
     shape's fd plan: at least one block an SM, at most the threads allow;
-    bad arguments come back as a negated CUDA error."""
+    bad arguments come back as a negated CUDA error; the plan's direction
+    groups and ring fit."""
     lib = tk._lib("equiv_power_fd")
-    fc = 22 if bf16 else 11
-    n = lib.zrt_equiv_power_fd_blocks_per_sm(512, fc, 106, bf16, bt)
-    assert 1 <= n <= 2048 // (512 if bt == 1 else 256)
-    assert lib.zrt_equiv_power_fd_blocks_per_sm(512, fc, 106, bf16, 3) < 0
-    assert lib.zrt_equiv_power_fd_blocks_per_sm(500, fc, 106, bf16, bt) < 0
+    fc = 13 if bf16 else 8
+    n = lib.zrt_equiv_power_fd_blocks_per_sm(bf16, bt, 512, fc, 106, 2)
+    assert 1 <= n <= 2048 // (512 if bt >= 8 else 256)
+    assert lib.zrt_equiv_power_fd_blocks_per_sm(bf16, 3, 512, fc, 106, 2) < 0
+    assert lib.zrt_equiv_power_fd_blocks_per_sm(bf16, bt, 500, fc, 106, 2) < 0
     dev = torch.device("cuda", 0)
-    assert tk._fd_slots(lib, dev, 512, fc, 106, bf16, bt) == (
-        n * torch.cuda.get_device_properties(dev).multi_processor_count)
+    assert tk._blocks_per_sm(lib, "zrt_equiv_power_fd_blocks_per_sm", dev,
+                             bf16, bt, 512, fc, 106, 2) == n
+    cost, stages, n_dg = tk._fd_plan(dev, bf16, bt, 512, fc, 106, 1, 11, 114)
+    assert cost >= 1 and 2 <= stages <= tk.MAX_STAGES and 1 <= n_dg <= 114

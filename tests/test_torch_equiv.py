@@ -114,7 +114,7 @@ def test_fused_bf16_display_grade(tiny_cfg, rng):
             == np.unravel_index(ref[b].argmax(), ref[b].shape)
 
 
-@pytest.mark.parametrize("B,bt", [(5, 8), (3, 4), (2, 2), (1, 1), (11, 8)])
+@pytest.mark.parametrize("B,bt", [(5, 8), (3, 4), (2, 2), (1, 1), (11, 16)])
 def test_fused_batch_padding_and_squeeze(tiny_cfg, rng, B, bt):
     """Batches pad to the frame tile with zero frames and slice back;
     2-D input squeezes."""
@@ -162,11 +162,13 @@ def test_fused_rejects_unknown_mode():
 
 def test_hopper_plan_fits_shared_memory():
     """Reference shape (lerp Tt=98 / hybrid Tt=106, K=2M=512, J*M<=768):
-    every frame tile fits one block; an oversized tail/head count has no
-    plan and raises (the policy then falls back to freq_equiv)."""
+    every frame tile fits one block in FP32 and bf16 with a two-stage
+    ring; an oversized tail/head count has no plan and raises (the policy
+    then falls back to freq_equiv)."""
     for Tt, JM in ((98, 256), (106, 768)):
-        for bt in tk.FRAME_TILES:
-            assert tk.smem_bytes(bt, Tt, 512, JM) <= tk.SMEM_MAX
+        for itemsize in (4, 2):
+            for bt in tk.FRAME_TILES:
+                assert tk.smem_bytes(bt, Tt, 512, JM, itemsize) <= tk.SMEM_MAX
     et = tf.make_equiv_tables(tb.make_tables(Config.tiny(), "lerp",
                                              cache=False, device="cpu"))
     huge = torch.zeros(et.n_bins, 8000)
@@ -183,11 +185,12 @@ def test_wrapper_uses_plain_version_only_on_cpu(tiny_cfg, rng):
     x = torch.from_numpy(_frames(tiny_cfg, rng, 2))
     S, sj, bt = fused.kernel_inputs(x)
     kw = dict(n_tail=fused.n_tail, Tc=fused.Tc, inv=fused.inv)
-    args = (S, fused.H1, fused.H2, fused.ib1, fused.ib2, sj, fused.Wc3)
+    args = (S, fused.H1, fused.ib1, fused.ib2, sj, fused.wc)
     before = tk.equiv_power.launches
     out = tk.equiv_power(*args, block_b=bt, **kw)
     assert tk.equiv_power.launches == before
     assert torch.equal(out, tk.equiv_power_plain(*args, **kw))
-    meta = [a.to("meta") for a in args]
+    meta = [a.to("meta") if isinstance(a, torch.Tensor) else a
+            for a in args]
     with pytest.raises(ValueError, match="device"):
         tk.equiv_power(*meta, block_b=bt, **kw)

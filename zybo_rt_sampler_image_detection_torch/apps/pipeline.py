@@ -30,9 +30,11 @@ from ..ingest.receiver import Receiver
 from ..ops import beamform
 from ..utils.metrics import PipelineMetrics
 
-# Byte cap for the bin-major FP32 response planes of the equiv paths,
-# 16*D*M*F (two planes of (F, 2M, D) float32).  The JAX package capped them
-# at 2.4e9 B, 15% of a 16 GB v5e; the same share of the H100's 80 GB.
+# Byte cap for the equiv paths' response planes, reckoned as the JAX
+# package's two FP32 planes of (F, 2M, D): 16*D*M*F.  The port's kernels
+# hold one plane (half that), but the formula stays the JAX policy's, so
+# the port picks the backend the JAX policy picks.  The JAX package capped
+# them at 2.4e9 B, 15% of a 16 GB v5e; the same share of the H100's 80 GB.
 _EQUIV_PLANE_CAP = 0.15 * 80e9
 
 

@@ -4,7 +4,8 @@ Each ``csrc/<name>.cu`` has a plain C interface and is compiled on first
 use with ``nvcc`` for Hopper (``sm_90a``) into
 ``build/kernels/lib<name>-<digest>.so`` beside the package (override with
 ``ZRT_TORCH_KERNEL_DIR``; git ignores ``build/``).  The digest keys the
-binary by source content, so an edited kernel is rebuilt.  Nothing here
+binary by the content of the source and of the ``csrc/*.cuh`` headers it
+includes, so an edited kernel or header is rebuilt.  Nothing here
 runs at import: the CPU tests import every module on hosts with no
 ``nvcc``.  The same idiom as ``ingest/native_build.py``.
 """
@@ -14,6 +15,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -42,11 +44,30 @@ def _nvcc() -> str:
                        "build from source on first use")
 
 
+def _digest(src: str) -> str:
+    """The build key of a source: its content and that of every
+    ``csrc/*.cuh`` it includes (``#include "x.cuh"``, followed through the
+    headers), so an edited shared header rebuilds every library using it."""
+    h = hashlib.sha256()
+    seen, todo = set(), [src]
+    while todo:
+        path = todo.pop(0)
+        if path in seen:
+            continue
+        seen.add(path)
+        with open(path, "rb") as f:
+            text = f.read()
+        h.update(os.path.basename(path).encode() + b"\0" + text)
+        for inc in re.findall(rb'^\s*#\s*include\s+"([^"]+\.cuh)"', text,
+                              re.MULTILINE):
+            todo.append(os.path.join(_CSRC, inc.decode()))
+    return h.hexdigest()[:12]
+
+
 def build(name: str) -> str:
     """Compile ``csrc/<name>.cu`` (if not built yet); returns the .so."""
     src = os.path.join(_CSRC, f"{name}.cu")
-    with open(src, "rb") as f:
-        digest = hashlib.sha256(f.read()).hexdigest()[:12]
+    digest = _digest(src)
     out_dir = _build_dir()
     so = os.path.join(out_dir, f"lib{name}-{digest}.so")
     if os.path.exists(so):

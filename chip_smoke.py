@@ -23,10 +23,12 @@ Phases (any failure raises, so the exit code is non-zero):
    f32/high/bf16, B=1 and B=16, on the auto fd plan (more than one
    frequency chunk), with the same times, bound and route.
 4. The fused time-domain kernel (K2/K3/K4: one kernel over planned tap
-   windows) against its plain version at ``Config()`` lerp and hybrid,
-   f32/high/bf16, B=1 and B=16, and against the exact FP32 product, with
-   CUDA-event times and the dense ``torch.matmul(W, Sdel)`` alone as a
-   yardstick.
+   windows, corrections from the sparse list) against its plain version
+   at ``Config()`` lerp and hybrid, f32/high/bf16, B=1 and B=16, and
+   against the exact FP32 product, with CUDA-event times of the prologue
+   and the kernel, the plan (Tw, G, NS, MG), the table bytes the class
+   holds and the dense ``torch.matmul(W, Sdel)`` alone as a yardstick at
+   each B.
 5. The live slice end to end: the native emulator on loopback ->
    ``Pipeline(..., power_backend="equiv_kernel", device="cuda")``, then
    ``Pipeline(..., power_fn=FusedEquivBeamformer(tables, sweep="fd"))`` ->
@@ -363,9 +365,11 @@ def phase_fd_vs_plain(card: str) -> dict:
 
 def phase_time_kernel_vs_plain(card: str) -> dict:
     """K2/K3/K4 (one kernel over the planned tap windows) against its
-    plain version, and against the exact FP32 product, at Config();
-    returns the main path's entry (lerp, f32, B=16: the full-rate stage's
-    shape)."""
+    plain version, and against the exact FP32 product, at Config(); each
+    row with the prologue's and the kernel's device ms, the plan (Tw, G
+    warp tiles x NS sample splits, MG mics a stage) and the dense
+    ``torch.matmul(W, Sdel)`` at the same B.  Returns the main path's
+    entry (lerp, f32, B=16: the full-rate stage's shape)."""
     from zybo_rt_sampler_image_detection_torch.config import Config
     from zybo_rt_sampler_image_detection_torch.ops import (
         beamform, fused_kernel as fk)
@@ -388,20 +392,28 @@ def phase_time_kernel_vs_plain(card: str) -> dict:
             fb = fk.FusedBeamformer(tables)
             assert fb.mode == mode, (fb.mode, mode)
             nnz = int((tables.W != 0).sum())
+            wc = list(fb.wc) if fb.wc is not None else []
+            nnz_c = fb.wc.val.numel() if wc else 0
+            isz = fb.Wp.element_size()
+            print(f"[K2-4] {algo:6s} {mode:4s}: Tw={fb.TK} (tile_d "
+                  f"{fb.tile_d}) rows NL={fb.NL} lpad={fb.lpad}; tables "
+                  f"held {fb.table_bytes / 1e6:.3f} MB (weights "
+                  f"{nbytes(fb.Wp) / 1e6:.3f} MB, list {nnz_c} entries "
+                  f"{nbytes(*wc) / 1e6:.3f} MB)")
             for B in (1, FULLRATE_BATCH):
                 x = frames[:B]
-                s, corr = fb.kernel_inputs(x)
-                kw = dict(tau_min=fb.tau_min, tile_d=fb.tile_d, inv=fb.inv)
+                s, sj = fb.kernel_inputs(x)
+                args = (s, fb.Wp, fb.bases, sj, fb.wc)
 
                 def kern():
-                    return fk.fused_power(s, fb.Wp, fb.bases, corr, **kw)
+                    return fk.fused_power(*args, **fb.kernel_kw)
 
                 def plain():
-                    return fk.fused_power_plain(s, fb.Wp, fb.bases, corr,
-                                                **kw)
+                    return fk.fused_power_plain(*args, **fb.kernel_kw)
 
                 got, ref = kern(), plain()
                 torch.cuda.synchronize()
+                p = fk.fused_power.last_plan
                 shape = (B, fb.res_x, fb.res_y)
                 got = got[:B, :fb.D].reshape(shape)
                 ref = ref[:B, :fb.D].reshape(shape)
@@ -410,35 +422,38 @@ def phase_time_kernel_vs_plain(card: str) -> dict:
                 abs_err = (got.double() - ref.double()).abs().max().item()
                 err_td = rel_err(got, td[:B])
                 peak_td = all(peak(got[b]) == peak(td[b]) for b in range(B))
-                iters = 10 if B == 1 else 3
+                iters = 10 if B == 1 else 5
                 k_ms, p_ms = in_turns(plain, kern, iters)
+                pro_ms = time_ms(lambda: fb.kernel_inputs(x), iters)
+                # the dense product alone in the tables' dtype, at this B;
+                # the port never calls it
+                sdel = beamform.delay_lines(
+                    x.permute(1, 0, 2)[tables.adaptive], tables.tau_min,
+                    fb.T, stack_axis=0).to(tables.W.dtype)
+                w2 = tables.W.reshape(fb.D, -1)
+                sd2 = sdel.reshape(w2.shape[1], -1)
+                lib_ms = time_ms(lambda: torch.matmul(w2, sd2), iters)
+                del sdel, sd2
                 # the work the maps need, whatever the plan: one product
-                # per nonzero weight and sample, then the squares and sums;
-                # bytes: the signal, the nonzero weights, the corrections
-                # and the output, each once
-                flops = 2 * B * N * nnz + 2 * B * fb.D * N
-                bd = bound(nbytes(s, corr) + nnz * fb.Wp.element_size()
+                # per nonzero weight and sample, the squares and sums, one
+                # per list entry and frame; bytes: the frames' samples, the
+                # nonzero weights, sj, the list and the output, each once
+                flops = 2 * B * N * nnz + 2 * B * fb.D * N + 2 * B * nnz_c
+                bd = bound(B * fb.M * N * isz + nnz * isz + nbytes(sj, *wc)
                            + 4 * B * fb.D, flops)
-                line = (f"[K2-4] {algo:6s} {mode:4s} B={B:2d} TK={fb.TK} "
-                        f"nnz(W)={nnz}: max rel err vs plain {err:.3e} "
-                        f"(tol {TIME_RTOL:.0e}) max abs {abs_err:.3e} | vs "
-                        f"exact FP32 {err_td:.3e} same peak {peak_td} | "
-                        f"kernel {k_ms:.4f} ms plain {p_ms:.4f} ms bound "
-                        f"{bd['bound_ms']:.4f} ms ({bd['bound_by']}, "
-                        f"{bd['bound_ms'] / k_ms:.1%} of it)")
+                print(f"[K2-4] {algo:6s} {mode:4s} B={B:2d} Tw={fb.TK} "
+                      f"G={p.G} NS={p.NS} NI={p.NI} MG={p.MG} "
+                      f"({p.blocks} blocks, {p.bps} an SM, {p.smem} B "
+                      f"shared): max rel err vs plain {err:.3e} (tol "
+                      f"{TIME_RTOL:.0e}) max abs {abs_err:.3e} | vs exact "
+                      f"FP32 {err_td:.3e} same peak {peak_td} | prologue "
+                      f"{pro_ms:.4f} ms kernel {k_ms:.4f} ms plain "
+                      f"{p_ms:.4f} ms dense matmul(W, Sdel) {lib_ms:.4f} ms "
+                      f"| bound {bd['bound_ms']:.4f} ms ({bd['bound_by']}, "
+                      f"{bd['bound_ms'] / k_ms:.1%} of it) [{card}]")
                 if (algo, mode, B) == ("lerp", "f32", FULLRATE_BATCH):
-                    # the dense product alone, the port never calls it
-                    sdel = beamform.delay_lines(
-                        x.permute(1, 0, 2)[tables.adaptive],
-                        tables.tau_min, fb.T, stack_axis=0)
-                    w2 = t32.W.reshape(fb.D, -1)
-                    sd2 = sdel.reshape(w2.shape[1], -1)
-                    lib_ms = time_ms(lambda: torch.matmul(w2, sd2), iters)
-                    del sdel, sd2
-                    line += f" | dense matmul(W, Sdel) {lib_ms:.4f} ms"
                     main = dict(max_abs_err=abs_err, ms=k_ms, plain_ms=p_ms,
                                 library_ms=lib_ms, **bd)
-                print(line + f" [{card}]")
                 assert err <= TIME_RTOL, (
                     f"time kernel disagrees with plain: {algo} {mode} B={B}")
                 if mode == "bf16":

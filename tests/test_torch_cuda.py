@@ -223,15 +223,16 @@ def _plan(fused, dense):
                             fused.DP, fused.plane_dtype), bases
 
 
-def _run_time(fused, x, dense=False):
-    s, corr = fused.kernel_inputs(x)
+def _run_time(fused, x, dense=False, split=None):
+    s, sj = fused.kernel_inputs(x)
     w, bases = _plan(fused, dense)
-    kw = dict(tau_min=fused.tau_min, tile_d=fused.tile_d, inv=fused.inv)
     before = tf.fused_power.launches
-    got = tf.fused_power(s, w, bases, corr, **kw)
+    got = tf.fused_power(s, w, bases, sj, fused.wc, split=split,
+                         **fused.kernel_kw)
     torch.cuda.synchronize()
     assert tf.fused_power.launches == before + 1
-    return got, tf.fused_power_plain(s, w, bases, corr, **kw)
+    return got, tf.fused_power_plain(s, w, bases, sj, fused.wc,
+                                     **fused.kernel_kw)
 
 
 def _maps(fused, out, B):
@@ -296,20 +297,100 @@ def test_time_kernel_matches_plain_reference_shape(cuda, window, mode,
             assert power[b].argmax() == exact[b].argmax()
 
 
-def test_time_wrapper_rejects_bad_inputs(cuda):
+@pytest.mark.parametrize("algorithm,mode", [("lerp", "f32"),
+                                            ("hybrid", "bf16")])
+@pytest.mark.parametrize("B", [1, 3, 16, 37])
+def test_time_kernel_every_split(cuda, algorithm, mode, B):
+    """``Config()`` at every block split the planner can take (G warp
+    tiles x NS sample splits), against the plain version, and the plan's
+    own choice."""
+    cfg = Config()
+    t = _tables(cfg, algorithm, mode, cuda, cache=True)
+    fused = tf.FusedBeamformer(t)
+    x = torch.from_numpy(_frames(cfg, B) * 0.5).to(cuda)
+    s, sj = fused.kernel_inputs(x)
+    ref = tf.fused_power_plain(s, fused.Wp, fused.bases, sj, fused.wc,
+                               **fused.kernel_kw).cpu().numpy()
+    splits = [None] + [(G, NS) for NS in tf.sample_splits(fused.N)
+                       for G in range(1, tf.MAX_WARPS // NS + 1)]
+    for split in splits:
+        got = tf.fused_power(s, fused.Wp, fused.bases, sj, fused.wc,
+                             split=split, **fused.kernel_kw)
+        torch.cuda.synchronize()
+        p = tf.fused_power.last_plan
+        assert split is None or (p.G, p.NS) == split
+        assert tf._lib().zrt_time_power_smem(
+            int(mode == "bf16"), fused.NL, fused.TK, fused.M, fused.JM,
+            fused.Tc, p.G, p.NS, p.MG, int(tf.STAGE_WEIGHTS)) == p.smem
+        np.testing.assert_allclose(got.cpu().numpy(), ref, rtol=TIME_RTOL,
+                                   atol=1e-14, err_msg=f"plan {p}")
+
+
+@pytest.mark.parametrize("B", [1, 16])
+def test_time_kernel_deterministic(cuda, B):
+    """No atomics, a fixed order of every sum: two launches on the same
+    inputs give the same bits, at one frame (sample splits) and 16."""
+    cfg = Config()
+    t = _tables(cfg, "hybrid", "f32", cuda, cache=True)
+    fused = tf.FusedBeamformer(t)
+    x = torch.from_numpy(_frames(cfg, B)).to(cuda)
+    a, b = fused(x), fused(x)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+
+
+def test_time_kernel_checks_bases(cuda):
+    """A base past the padded rows' margin would read outside them: the
+    kernel writes NaN for its block instead, and the rest stays right."""
     t = tb.make_tables(Config.tiny(), "lerp", cache=False, device=cuda)
+    fused = tf.FusedBeamformer(t)
+    x = torch.from_numpy(_frames(Config.tiny(), 2)).to(cuda)
+    s, sj = fused.kernel_inputs(x)
+    bases = fused.bases.clone()
+    bases[0, 0] = fused.lpad - fused.tau_min - fused.TK + 2
+    got = tf.fused_power(s, fused.Wp, bases, sj, fused.wc, split=(1, 1),
+                         **fused.kernel_kw)
+    ref = tf.fused_power(s, fused.Wp, fused.bases, sj, fused.wc,
+                         split=(1, 1), **fused.kernel_kw)
+    torch.cuda.synchronize()
+    assert torch.isnan(got[:, :8]).all()
+    assert torch.equal(got[:, 8:], ref[:, 8:])
+
+
+def test_time_wrapper_rejects_bad_inputs(cuda):
+    t = tb.make_tables(Config.tiny(), "hybrid", cache=False, device=cuda)
     fused = tf.FusedBeamformer(t, tile_d=8)
-    s, corr = fused.kernel_inputs(torch.zeros(3, 16, 64, device=cuda))
-    kw = dict(tau_min=fused.tau_min, tile_d=8, inv=fused.inv)
+    s, sj = fused.kernel_inputs(torch.zeros(3, 16, 64, device=cuda))
+    kw = fused.kernel_kw
+    w, b, wc = fused.Wp, fused.bases, fused.wc
     with pytest.raises(ValueError, match="dtype"):
-        tf.fused_power(s.double(), fused.Wp, fused.bases, corr, **kw)
+        tf.fused_power(s.double(), w, b, sj, wc, **kw)
     with pytest.raises(ValueError, match="bases"):
-        tf.fused_power(s, fused.Wp, fused.bases.long(), corr, **kw)
+        tf.fused_power(s, w, b.long(), sj, wc, **kw)
     with pytest.raises(ValueError, match="device"):
-        tf.fused_power(s, fused.Wp.cpu(), fused.bases, corr, **kw)
+        tf.fused_power(s, w.cpu(), b, sj, wc, **kw)
     with pytest.raises(ValueError, match="contiguous"):
         tf.fused_power(s.transpose(1, 2).contiguous().transpose(1, 2),
-                       fused.Wp, fused.bases, corr, **kw)
+                       w, b, sj, wc, **kw)
+    # the list without sj, sj without the list, and a bad list
+    with pytest.raises(ValueError, match="sj"):
+        tf.fused_power(s, w, b, None, wc, **kw)
+    with pytest.raises(ValueError, match="wc"):
+        tf.fused_power(s, w, b, sj, None, **kw)
+    with pytest.raises(ValueError, match="sj"):
+        tf.fused_power(s, w, b, sj.double(), wc, **kw)
+    for bad in (wc._replace(ptr=wc.ptr.long()),
+                wc._replace(val=wc.val[:-1].contiguous()),
+                wc._replace(ptr=wc.ptr[:-1].contiguous()), tuple(wc)):
+        with pytest.raises(ValueError, match="wc"):
+            tf.fused_power(s, w, b, sj, bad, **kw)
+    # rows too short for the shifted reads
+    with pytest.raises(ValueError, match="rows"):
+        tf.fused_power(s[..., :-8].contiguous(), w, b, sj, wc, **kw)
+    with pytest.raises(ValueError, match="rows"):
+        tf.fused_power(s, w, b, sj, wc, **{**kw, "lpad": 0})
+    with pytest.raises(ValueError, match="split"):
+        tf.fused_power(s, w, b, sj, wc, split=(8, 2), **kw)
 
 
 def test_fused_policy_launches_kernel(cuda, monkeypatch):

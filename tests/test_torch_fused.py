@@ -15,6 +15,7 @@ from zybo_rt_sampler_image_detection_tpu.ops import beamform as jb
 from zybo_rt_sampler_image_detection_tpu.ops import pallas_kernels as jp
 from zybo_rt_sampler_image_detection_torch import Config
 from zybo_rt_sampler_image_detection_torch.ops import beamform as tb
+from zybo_rt_sampler_image_detection_torch.ops import equiv_kernel as tk
 from zybo_rt_sampler_image_detection_torch.ops import fused_kernel as tf
 
 from conftest import synth_frame
@@ -47,9 +48,8 @@ def _dense_power(fused, frames):
     bases = torch.zeros_like(fused.bases)
     w = tf._prep_weights(fused.t.W, bases, fused.T, fused.tile_d, fused.DP,
                          fused.plane_dtype)
-    s, corr = fused.kernel_inputs(torch.from_numpy(frames))
-    out = tf.fused_power(s, w, bases, corr, tau_min=fused.tau_min,
-                         tile_d=fused.tile_d, inv=fused.inv)
+    s, sj = fused.kernel_inputs(torch.from_numpy(frames))
+    out = tf.fused_power(s, w, bases, sj, fused.wc, **fused.kernel_kw)
     return _np(out[:, :fused.D].reshape(len(frames), fused.res_x,
                                         fused.res_y))
 
@@ -220,8 +220,8 @@ def test_batch_padding(tiny_cfg, rng, B):
     jgot = np.asarray(jp.FusedBeamformer(jt, tile_d=8, chunk_b=2)(frames),
                       np.float64)
     fused = tf.FusedBeamformer(_port(jt), tile_d=16)
-    s, corr = fused.kernel_inputs(torch.from_numpy(frames))
-    assert s.shape[0] == B and corr.shape == (B, fused.cc, fused.DP)
+    s, sj = fused.kernel_inputs(torch.from_numpy(frames))
+    assert s.shape == (B, fused.M, fused.NL) and sj.shape == (B, fused.JM)
     got = _np(fused(torch.from_numpy(frames)))
     assert got.shape == (B, tiny_cfg.max_res_x, tiny_cfg.max_res_y)
     np.testing.assert_allclose(got, jgot, rtol=1e-4, atol=1e-9)
@@ -253,29 +253,143 @@ def test_reference_shape_parity(window):
         (2, cfg.n_microphones, cfg.n_samples)) * 0.1).astype(np.float32)
     ref = np.asarray(jb.steered_power(frames, jt), np.float64)
     fused = tf.FusedBeamformer(_port(jt))
-    # the tile-32 windows the kernel plans at alignment 1
+    # the tile-8 windows the kernel plans at alignment 1
     assert fused.TK < 20
     got = (_np(fused(torch.from_numpy(frames))) if window
            else _dense_power(fused, frames))
     np.testing.assert_allclose(got, ref, rtol=1e-4, atol=1e-12)
 
 
-def test_plan_fits_every_preset_shape():
+@pytest.mark.parametrize("preset", ["tiny", "northstar", "reference"])
+def test_plan_fits_every_preset_shape(preset):
     """Every preset and algorithm has a Hopper plan at every direction
-    tile, up to the dense plan's T taps (a K-looped kernel fits where the
-    TPU needed a VMEM fallback), and the plan's arithmetic matches the
-    kernel's limits."""
-    for cfg in (Config.tiny(), Config.northstar(), Config()):
-        for algo in ("lerp", "hybrid"):
-            t = tb.make_tables(cfg, algo, cache=False, device="cpu")
-            D, T, M = t.W.shape
-            for tile_d in tf.TILE_DS:
-                NI, MG, TKC, smem = tf.plan(T, cfg.n_samples, M, tile_d)
-                assert 32 * NI >= min(cfg.n_samples, 256)
-                assert 1 <= MG <= M and 1 <= TKC <= tf.TAP_CHUNK
-                assert smem <= tf.SMEM_MAX
+    tile, at every (G, NS) the planner can pick and at the batches the
+    stages use, up to the dense plan's T taps (a K-looped kernel fits
+    where the TPU needed a VMEM fallback), and the plan's arithmetic
+    matches the kernel's limits."""
+    cfg = {"tiny": Config.tiny(), "northstar": Config.northstar(),
+           "reference": Config()}[preset]
+    N = cfg.n_samples
+    for algo in ("lerp", "hybrid"):
+        t = tb.make_tables(cfg, algo, cache=False, device="cpu")
+        D, T, M = t.W.shape
+        Tc, JM = t.Wc.shape[2], len(t.corr_js) * M
+        lpad, NL = tf.row_layout(t.tau_min, T, N)
+        splits = tf.sample_splits(N)
+        for tile_d in tf.TILE_DS:
+            DP = tf._round_up(D, tile_d)
+            for isz in (4, 2):
+                for B in (1, 3, 16, 37):
+                    auto = tf.plan(N, M, T, DP, B, NL, isz, JM, Tc)
+                    assert auto.NS in splits and auto.NI == splits[auto.NS]
+                    for NS in splits:
+                        for G in range(1, tf.MAX_WARPS // NS + 1):
+                            p = tf.plan(N, M, T, DP, B, NL, isz, JM, Tc,
+                                        split=(G, NS))
+                            assert p.G * p.NS <= tf.MAX_WARPS
+                            assert 1 <= p.MG <= M and 1 <= p.bps
+                            assert p.smem <= tf.SMEM_MAX
+                            assert p.bps * (p.smem + tf.BLOCK_RESERVED) \
+                                <= tf.SM_SHARED
+                            assert p.bps * G * NS <= tf.WARPS_PER_SM
+                            cover = tf.sample_cover(N, NS, p.NI)
+                            assert N <= cover and NL >= lpad - t.tau_min + cover
+                            assert p.blocks == B * -(-(DP // tf.DW) // G)
     with pytest.raises(ValueError, match="no shared-memory plan"):
-        tf.plan(200000, 256, 256, 32)
+        tf.plan(256, 256, 200000, 1824, 1, 304, 4)
+    with pytest.raises(ValueError, match="split"):
+        tf.plan(256, 256, 5, 1824, 1, 304, 4, split=(4, 4))
+
+
+def _dense_corr(Wc, sf, corr_js, DP):
+    """The dense correction product the kernel once took, (B, cc, DP):
+    ``(B, J*M) @ (J*M, cc*DP)`` in FP32 (``pallas_kernels._prep_corr``)."""
+    J, D, Tc, M = Wc.shape
+    N = sf.shape[-1]
+    cc = min(max(8, tf._round_up(Tc, 8)), N)
+    wcp = torch.nn.functional.pad(Wc.float(), (0, 0, 0, cc - Tc, 0, DP - D))
+    corr_w = wcp.permute(0, 3, 2, 1).reshape(J * M, cc * DP)
+    sj = torch.stack([sf[:, :, j].float() for j in corr_js], dim=1)
+    return (sj.reshape(len(sf), -1) @ corr_w).reshape(len(sf), cc, DP)
+
+
+@pytest.mark.parametrize("algorithm", ["lerp", "hybrid"])
+@pytest.mark.parametrize("preset", ["tiny", "reference"])
+def test_list_corrections_match_dense_product(preset, algorithm):
+    """The kernel's corrections from the sparse list (its plain version,
+    ``corrections_plain``) equal the dense ``(B, J*M) @ (J*M, cc*DP)``
+    product within 1e-6, and the class holds the list, not that table."""
+    cfg = Config.tiny() if preset == "tiny" else Config()
+    t = tb.make_tables(cfg, algorithm, cache=False, device="cpu")
+    fused = tf.FusedBeamformer(t)
+    assert not hasattr(fused, "corr_w")
+    assert fused.wc.val.numel() == int((t.Wc != 0).sum())
+    rng = np.random.default_rng(11)
+    x = torch.from_numpy((rng.standard_normal(
+        (3, cfg.n_microphones, cfg.n_samples)) * 0.1).astype(np.float32))
+    s, sj = fused.kernel_inputs(x)
+    sf = x[:, :fused.M] if fused.adaptive is None else x[:, fused.adaptive]
+    dense = _dense_corr(t.Wc, sf, t.corr_js, fused.DP)
+    Tc = fused.Tc
+    v = tk.corrections_plain(sj, fused.wc, Tc, fused.DP).permute(1, 0, 2)
+    assert v.shape == (3, Tc, fused.DP) and not dense[:, Tc:].any()
+    scale = float(dense.abs().max())
+    np.testing.assert_allclose(v.numpy(), dense[:, :Tc].numpy(), rtol=1e-6,
+                               atol=1e-6 * scale)
+
+
+@pytest.mark.parametrize("algorithm", ALGORITHMS + ("reference-lerp",))
+def test_padded_rows_read_delay_lines(tiny_cfg, rng, algorithm):
+    """The padded rows hold every frame's samples at ``lpad + n`` and
+    zeros around them: tap t's read from ``lpad - tau_min - t`` gives
+    ``delay_lines``' shifted row, and every read of every split's passes
+    lies inside the row."""
+    if algorithm == "reference-lerp":
+        cfg, algorithm = Config(), "lerp"
+    else:
+        cfg = tiny_cfg
+    t = tb.make_tables(cfg, algorithm, cache=False, device="cpu")
+    fused = tf.FusedBeamformer(t)
+    N, T = fused.N, fused.T
+    x = torch.from_numpy(_frames(cfg, rng))
+    s, _ = fused.kernel_inputs(x)
+    sf = (x[:, :fused.M] if fused.adaptive is None
+          else x[:, fused.adaptive]).float()
+    lines = tb.delay_lines(sf, fused.tau_min, T, stack_axis=-2)
+    assert s.shape[-1] == fused.NL and fused.NL % tf.ROW_ALIGN == 0
+    np.testing.assert_array_equal(s[..., fused.lpad:fused.lpad + N].numpy(),
+                                  sf.numpy())
+    for tap in range(T):
+        start = fused.lpad - fused.tau_min - tap
+        assert start >= 0
+        np.testing.assert_array_equal(s[..., start:start + N].numpy(),
+                                      lines[:, :, tap].numpy())
+    for NS, NI in tf.sample_splits(N).items():
+        cover = tf.sample_cover(N, NS, NI)
+        assert fused.lpad - fused.tau_min + cover <= fused.NL
+        # the first read of the widest window: lpad - tau_min - max base
+        # - (Tw - 1) >= 0 (the kernel's base check)
+        assert int(fused.bases.max()) <= fused.lpad - fused.tau_min \
+            - fused.TK + 1
+
+
+@pytest.mark.parametrize("algorithm,tw", [("lerp", 5), ("hybrid", 11),
+                                          ("pad", 4), ("convolve", 8)])
+def test_window_plan_tile8_at_reference(algorithm, tw):
+    """At ``Config()`` the one-warp tile of 8 directions gives windows of
+    Tw lerp 5, hybrid 11, pad 4, convolve 8 taps, and they cover every
+    nonzero tap of their (tile, mic)."""
+    t = tb.make_tables(Config(), algorithm, cache=False, device="cpu")
+    W = t.W.float().numpy()
+    bases, Tw = tf._window_plan(W, 8)
+    assert Tw == tw
+    D, T, M = W.shape
+    assert (bases >= 0).all() and (bases + Tw <= T).all()
+    d_idx, t_idx, m_idx = np.nonzero(W)
+    tl = d_idx // 8
+    assert (bases[tl, m_idx] <= t_idx).all()
+    assert (t_idx < bases[tl, m_idx] + Tw).all()
+    assert tf.FusedBeamformer(t).TK == tw
 
 
 def test_cpu_tensors_take_the_plain_version(tiny_cfg, rng, monkeypatch):
@@ -300,8 +414,8 @@ def test_cuda_request_raises_without_gpu(tiny_cfg):
         tb.make_tables(tiny_cfg, "lerp", cache=False, device="cuda")
     t = tb.make_tables(tiny_cfg, "lerp", cache=False, device="cpu")
     fused = tf.FusedBeamformer(t)
-    s, corr = fused.kernel_inputs(torch.zeros(1, 16, 64))
+    s, sj = fused.kernel_inputs(torch.zeros(1, 16, 64))
     with pytest.raises(ValueError, match="unsupported device"):
         tf.fused_power(s.to("meta"), fused.Wp.to("meta"),
-                       fused.bases.to("meta"), None, tau_min=0, tile_d=32,
-                       inv=1.0)
+                       fused.bases.to("meta"), None, None,
+                       **fused.kernel_kw)

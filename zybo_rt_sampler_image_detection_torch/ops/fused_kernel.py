@@ -5,58 +5,77 @@ over delay lines (:mod:`.beamform`)::
 
     beam[b, d, n] = sum_{m, j} W[d, tau_min + base[d, m] + j, m]
                                * s[b, m, n - tau_min - base[d, m] - j]
-    power[b, d]   = sum_n (beam[b, d, n] - corr[b, n, d])**2 / (M**2 N)
+    power[b, d]   = sum_n (beam[b, d, n] - v[b, d, n])**2 / (M**2 N)
 
-with zero-filled shifts per frame and the boundary corrections ``corr``
-on the first ``cc`` samples.  The kernel (``csrc/time_power.cu``) is an
-implicit GEMM: a block stages a slab of each frame's signal in shared
-memory and reads every shifted operand from it, so the delay lines and
-the (B, D, N) beams never reach device memory.  The source note in the
-``.cu`` says what bounds it on the H100 and how the design answers.
+with zero-filled shifts per frame and the boundary corrections ``v`` on
+the first ``Tc`` samples.  The kernel (``csrc/time_power.cu``) is an
+implicit GEMM: a block stages one frame's signal rows in shared memory, a
+group of mics at a time, and every warp reads its shifted operands from
+them, so the delay lines and the (B, D, N) beams never reach device
+memory.  The source note in the ``.cu`` says what bounds it on the H100
+and how the design answers.
 
-K runs over a per-(direction tile, mic) window of ``Tw`` taps starting
-at ``base`` (:func:`_window_plan`).  Where a tile's taps spread over all
-T, the plan degenerates to ``Tw = T`` and ``base = 0``: the dense
-contraction of the TPU's full and chunked-T kernels.
+K runs over a per-(window tile, mic) window of ``Tw`` taps starting at
+``base`` (:func:`_window_plan`, window tile ``tile_d`` = 8 directions by
+default, one warp's).  Where a tile's taps spread over all T, the plan
+degenerates to ``Tw = T`` and ``base = 0``: the dense contraction of the
+TPU's full and chunked-T kernels.
 
-Layout the kernel takes (the forward below builds it):
+Layout the kernel takes (:class:`FusedBeamformer` builds it):
 
-* ``s``      (BP, M, N)      active-mic signals, plane dtype;
+* ``s``      (BP, M, NL)     active-mic signals in the plane dtype, sample
+                             n of a row at ``lpad + n``, zero margins wide
+                             enough for every shifted read
+                             (:func:`row_layout`), NL rounded to 16 bytes;
 * ``w``      (M*Tw, DP)      weights, row ``m*Tw + j``, directions padded
                              to DP;
 * ``bases``  (DP/tile_d, M)  int32 first tap of each window;
-* ``corr``   (BP, cc, DP)    float32 boundary corrections, or None;
+* ``sj``     (BP, J*M)       float32 correction sample columns, and
+  ``wc``     :class:`~.equiv_kernel.HeadCorrections`, the nonzero weights
+                             of ``Wc`` as a CSR over rows ``d*Tc + c``
+                             (both None without corrections);
 * output     (BP, DP)        float32 power.
 
 Precision: ``f32``/``high`` tables run FP32 operands, ``bf16`` tables bf16
 operands, always with FP32 sums.  The TPU's bf16 hi/lo 3-pass split
 (``_split_bf16``) was its way to FP32 on a bf16-only matrix unit and is
-not ported; the correction prologue is an FP32 ``torch.matmul`` (TF32
-off), as the JAX package left it to XLA.
+not ported; the corrections are FP32 sums over the sparse list inside the
+kernel, where the JAX package left a dense product to XLA.
 
 Ported from ``zybo_rt_sampler_image_detection_tpu/ops/pallas_kernels.py``
 (``FusedBeamformer``, ``_fused_forward``, ``_fused_forward_tchunk``,
 ``_fused_forward_window``, ``_window_plan``, ``_prep_corr``): the full,
 chunked-T and windowed variants are one K-looped kernel here, and the v5e
-VMEM planner is replaced by a plan for one H100 block's shared memory.
+VMEM planner is replaced by a plan of H100 blocks (:func:`plan`).
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
 import torch.nn.functional as F_
 
-from .beamform import delay_lines, set_fp32_matmul
+from .beamform import set_fp32_matmul
+from .equiv_kernel import (HeadCorrections, corrections_plain,
+                           make_head_corrections)
 
 # kernel constants of csrc/time_power.cu
-TILE_DS = (8, 16, 32)           # directions per block (8 per warp)
-TAP_CHUNK = 64                  # taps of one weight tile (TKC cap)
-K_GROUP = 256                   # weight rows (k steps) per staged mic group
+DW = 8                          # directions of a warp tile
+TILE_DS = (8, 16, 32)           # window tiles: directions sharing one window
+MAX_WARPS = 8                   # warps a block: G tiles x NS sample splits
+WARPS_PER_SM = 16               # __launch_bounds__(256, 2): registers for 16
 SMEM_MAX = 232448               # dynamic shared memory one H100 block can opt into
+SM_SHARED = 233472              # shared memory of one SM ...
+BLOCK_RESERVED = 1024           # ... of which the runtime keeps 1 KB a block
+SMS = 132                       # SMs of an H100 SXM (the CPU plan's card)
+MGS = (16, 8, 4, 2, 1)          # mics a stage, largest first
+ROW_ALIGN = 8                   # elements a padded row rounds to (>= 16 B)
+# the weights of each mic group staged in shared memory beside its rows
+# (True), or read by the warps from device memory (False)
+STAGE_WEIGHTS = True
 
 
 def _round_up(x: int, m: int) -> int:
@@ -93,30 +112,6 @@ def _window_plan(Wnp: np.ndarray, tile_d: int):
     return bases, Tw
 
 
-def _prep_corr_weights(Wc: Optional[torch.Tensor], cc: int, DP: int):
-    """(J, D, Tc, M) correction weights -> (J*M, cc*DP) float32, the
-    right-hand side whose column order is the kernel's (cc, DP) layout
-    (``pallas_kernels._prep_corr_weights``, swapped orientation)."""
-    if Wc is None:
-        return None
-    J, D, Tc, M = Wc.shape
-    if Tc > cc:
-        raise ValueError(f"corrections span {Tc} samples, more than cc={cc}")
-    wcp = F_.pad(Wc.float(), (0, 0, 0, cc - Tc, 0, DP - D))
-    return wcp.permute(0, 3, 2, 1).reshape(J * M, cc * DP).contiguous()
-
-
-def _prep_corr(sf: torch.Tensor, corr_w, corr_js, cc: int, DP: int):
-    """Boundary corrections in the kernel layout (BP, cc, DP): one
-    (BP, J*M) @ (J*M, cc*DP) FP32 product (``pallas_kernels._prep_corr``)."""
-    if corr_w is None:
-        return None
-    set_fp32_matmul()
-    BP = sf.shape[0]
-    sj = torch.stack([sf[:, :, j].float() for j in corr_js], dim=1)
-    return (sj.reshape(BP, -1) @ corr_w).reshape(BP, cc, DP)
-
-
 def _prep_weights(W: torch.Tensor, bases: torch.Tensor, Tw: int,
                   tile_d: int, DP: int, dtype) -> torch.Tensor:
     """(D, T, M) -> (M*Tw, DP): row m*Tw + j holds, for each direction d,
@@ -131,57 +126,116 @@ def _prep_weights(W: torch.Tensor, bases: torch.Tensor, Tw: int,
     return comp.permute(3, 2, 0, 1).reshape(M * Tw, DP).to(dtype).contiguous()
 
 
-def plan(TK: int, N: int, M: int, tile_d: int):
-    """The Hopper plan of one block: ``(NI, MG, TKC, smem_bytes)``.
+def sample_splits(N: int) -> dict:
+    """``{NS: NI}``: the sample splits a block may take for N samples and
+    the samples a lane of each (a warp covers 32*NI a pass).  A split is
+    offered only where each warp keeps at least 2 samples a lane."""
+    out = {}
+    for NS in (1, 2, 4):
+        per = -(-N // (32 * NS))
+        if NS > 1 and per < 2:
+            break
+        out[NS] = min(8, max(2, 1 << (per - 1).bit_length()))
+    return out
 
-    NI: samples per lane and pass (a warp covers 32*NI samples; longer
-    frames take several passes); TKC: taps per weight tile; MG: mics per
-    staged group, about K_GROUP k steps between two barriers.  Mirrors
-    ``smem_floats`` in the .cu.  Raises ValueError when not even one mic
-    fits a block's shared memory."""
-    NI = 2 if N <= 64 else 4 if N <= 128 else 8
-    TKC = min(TK, TAP_CHUNK)
-    MG = max(1, min(M, K_GROUP // TKC))
 
-    def smem(mg):
-        LP = 32 * NI + TK - 1
-        return 4 * (_round_up(mg * LP, 4) + mg * TKC * tile_d)
+def sample_cover(N: int, NS: int, NI: int) -> int:
+    """Samples the passes of a (NS, NI) block cover (>= N)."""
+    return _round_up(N, 32 * NS * NI)
 
-    while MG > 1 and smem(MG) > SMEM_MAX:
-        MG //= 2
-    if smem(MG) > SMEM_MAX:
+
+def row_layout(tau_min: int, taps: int, N: int) -> tuple:
+    """``(lpad, NL)`` of the padded signal rows: sample n at ``lpad + n``;
+    every read ``lpad + n - tau_min - t`` for taps t < ``taps`` and n below
+    any split's cover lies in ``[0, NL)``; NL rounded to ROW_ALIGN."""
+    lpad = max(0, tau_min + taps - 1)
+    cover = max(sample_cover(N, ns, ni) for ns, ni in
+                sample_splits(N).items())
+    return lpad, _round_up(max(lpad + N, lpad - tau_min + cover), ROW_ALIGN)
+
+
+def smem_bytes(itemsize: int, NL: int, TK: int, M: int, JM: int, Tc: int,
+               G: int, NS: int, MG: int, stage_w: bool = True) -> int:
+    """Shared memory of one block (mirrors ``layout`` in the .cu): two
+    stages of rows and weights in the plane type, then the bases, the sj
+    row, the corrections and the split sums."""
+    def r16(x):
+        return _round_up(x, 16)
+
+    wts = r16(2 * G * MG * TK * DW * itemsize) if stage_w else 0
+    return (r16(2 * MG * NL * itemsize) + wts
+            + r16(G * M * 4) + r16(JM * 4) + r16(G * Tc * DW * 4)
+            + r16(G * NS * DW * 4))
+
+
+class Plan(NamedTuple):
+    """One launch: G warp tiles x NS sample splits a block, NI samples a
+    lane, MG mics a stage, ``smem`` bytes a block, ``bps`` blocks an SM
+    (by shared memory and registers), ``blocks`` in the grid."""
+
+    G: int
+    NS: int
+    NI: int
+    MG: int
+    smem: int
+    bps: int
+    blocks: int
+
+
+def plan(N: int, M: int, TK: int, DP: int, B: int, NL: int, itemsize: int,
+         JM: int = 0, Tc: int = 0, sms: int = SMS,
+         split: Optional[tuple] = None) -> Plan:
+    """The Hopper plan of a launch of ``B`` frames.
+
+    NS: the fewest sample splits that give every SM WARPS_PER_SM warps
+    (B * DP/8 * NS of them), else the most; one frame needs them to fill
+    the card, 16 frames do not.  G: the warp tiles a block whose launch
+    puts the fewest warps on the busiest SM, then the fewest waves, the
+    most resident warps an SM and the most tiles (a frame is staged once
+    a block).  MG: the most mics a
+    stage that keep WARPS_PER_SM warps an SM in shared memory.
+    ``split=(G, NS)`` fixes both.  Raises ValueError when no block fits."""
+    splits = sample_splits(N)
+    n_t8 = DP // DW
+
+    def fit(G, NS):
+        want = max(1, WARPS_PER_SM // (G * NS))
+        best = None
+        for MG in sorted({min(mg, M) for mg in MGS}, reverse=True):
+            sm = smem_bytes(itemsize, NL, TK, M, JM, Tc, G, NS, MG,
+                            STAGE_WEIGHTS)
+            if sm > SMEM_MAX:
+                continue
+            bps = min(want, SM_SHARED // (sm + BLOCK_RESERVED))
+            if best is None or bps > best.bps:
+                blocks = B * -(-n_t8 // G)
+                best = Plan(G, NS, splits[NS], MG, sm, bps, blocks)
+            if bps == want:
+                break
+        return best
+
+    if split is not None:
+        G, NS = (int(x) for x in split)
+        if NS not in splits or not 1 <= G <= MAX_WARPS // NS:
+            raise ValueError(f"time_power: split (G={G}, NS={NS}) not in "
+                             f"G*NS <= {MAX_WARPS}, NS in {sorted(splits)}")
+        p = fit(G, NS)
+    else:
+        NS = next((ns for ns in splits
+                   if B * n_t8 * ns >= sms * WARPS_PER_SM), max(splits))
+        cands = [p for p in (fit(G, NS) for G in range(1, MAX_WARPS // NS + 1))
+                 if p is not None]
+
+        def cost(p):
+            return (-(-p.blocks // sms) * p.G * p.NS,
+                    -(-p.blocks // (sms * p.bps)), -p.bps * p.G * p.NS,
+                    -p.G)
+
+        p = min(cands, key=cost) if cands else None
+    if p is None:
         raise ValueError(f"time_power: no shared-memory plan for TK={TK} "
-                         f"N={N} tile_d={tile_d}")
-    return NI, MG, TKC, smem(MG)
-
-
-def fused_power_plain(s, w, bases, corr, *, tau_min: int, tile_d: int,
-                      inv: float) -> torch.Tensor:
-    """Plain-torch version of the kernel, same inputs and layout, FP32.
-
-    bf16 operands are widened to FP32 first, which is the kernel's
-    arithmetic (bf16 operands, FP32 sums)."""
-    set_fp32_matmul()
-    BP, M, N = s.shape
-    K, DP = w.shape
-    TK = K // M
-    sf, wf = s.float(), w.float()
-    T_all = int(bases.max()) + TK
-    full = delay_lines(sf, tau_min, T_all, stack_axis=-2)  # (BP, M, T_all, N)
-    jj = torch.arange(TK, device=s.device)
-    tiles = []
-    for i in range(DP // tile_d):
-        idx = (bases[i].long()[:, None] + jj[None, :])      # (M, TK)
-        win = torch.gather(full, 2, idx[None, :, :, None].expand(
-            BP, M, TK, N))
-        tiles.append(win.reshape(BP, K, N).transpose(1, 2)
-                     @ wf[:, i * tile_d:(i + 1) * tile_d])
-    beams = torch.cat(tiles, dim=2)                          # (BP, N, DP)
-    if corr is not None:
-        cc = corr.shape[1]
-        beams = torch.cat([beams[:, :cc] - corr, beams[:, cc:]], dim=1)
-    return torch.sum(beams * beams, dim=1) * inv
-
+                         f"N={N} M={M}")
+    return p
 
 def _lib():
     from . import _build
@@ -191,9 +245,12 @@ def _lib():
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.zrt_time_power.restype = i
         lib.zrt_time_power.argtypes = [
-            p, p, p, p, p,                         # s w bases corr out
-            i, i, i, i, i, i, i, i,                # BP M N TK DP tile_d tau_min cc
-            i, i, i, ctypes.c_float, i, p]         # MG TKC NI inv bf16 stream
+            p, p, p, p, p, p, p, p,                # s w bases sj ptr idx val out
+            i, i, i, i, i, i, i, i, i,             # BP M N NL lpad TK DP tile_d tau_min
+            i, i, i, i, i, i,                      # Tc JM G NS MG NI
+            ctypes.c_float, i, i, p]               # inv bf16 stage_w stream
+        lib.zrt_time_power_smem.restype = ctypes.c_long
+        lib.zrt_time_power_smem.argtypes = [i] * 10
         lib.zrt_cuda_error_string.restype = ctypes.c_char_p
         lib.zrt_cuda_error_string.argtypes = [i]
         lib._zrt_typed = True
@@ -205,20 +262,60 @@ def _check(cond: bool, msg: str) -> None:
         raise ValueError(f"fused_power: {msg}")
 
 
-def fused_power(s, w, bases, corr, *, tau_min: int, tile_d: int,
-                inv: float) -> torch.Tensor:
+def fused_power_plain(s, w, bases, sj, wc, *, tau_min: int, tile_d: int,
+                      inv: float, lpad: int, n_samples: int) -> torch.Tensor:
+    """Plain-torch version of the kernel, same inputs and layout, FP32.
+
+    Tap t of a mic reads its padded row from ``lpad - tau_min - t`` on,
+    as the kernel does; the corrections are
+    :func:`~.equiv_kernel.corrections_plain` of the list.  bf16 operands
+    are widened to FP32 first, which is the kernel's arithmetic (bf16
+    operands, FP32 sums)."""
+    set_fp32_matmul()
+    BP, M, NL = s.shape
+    K, DP = w.shape
+    TK, N = K // M, n_samples
+    wf = w.float()
+    T_all = int(bases.max()) + TK
+    starts = lpad - tau_min - torch.arange(T_all, device=s.device)
+    _check(int(starts.min()) >= 0 and int(starts.max()) + N <= NL,
+           "the padded rows do not hold every shifted read")
+    full = s.float().unfold(2, N, 1)[:, :, starts]          # (BP, M, T_all, N)
+    jj = torch.arange(TK, device=s.device)
+    tiles = []
+    for i in range(DP // tile_d):
+        idx = (bases[i].long()[:, None] + jj[None, :])      # (M, TK)
+        win = torch.gather(full, 2, idx[None, :, :, None].expand(
+            BP, M, TK, N))
+        tiles.append(win.reshape(BP, K, N).transpose(1, 2)
+                     @ wf[:, i * tile_d:(i + 1) * tile_d])
+    beams = torch.cat(tiles, dim=2)                          # (BP, N, DP)
+    if wc is not None:
+        Tc = (wc.ptr.numel() - 1) // DP
+        v = corrections_plain(sj, wc, Tc, DP).permute(1, 0, 2)
+        beams = torch.cat([beams[:, :Tc] - v, beams[:, Tc:]], dim=1)
+    return torch.sum(beams * beams, dim=1) * inv
+
+
+def fused_power(s, w, bases, sj, wc, *, tau_min: int, tile_d: int,
+                inv: float, lpad: int, n_samples: int,
+                split: Optional[tuple] = None) -> torch.Tensor:
     """Fused time-domain power, (BP, DP) float32.
 
     On CPU tensors this is :func:`fused_power_plain`.  On CUDA tensors it
-    launches the ``sm_90a`` kernel or raises; there is no fallback.
-    ``fused_power.launches`` counts the kernel launches."""
+    launches the ``sm_90a`` kernel on :func:`plan`'s blocks (``split=(G,
+    NS)`` fixes them) or raises; there is no fallback.
+    ``fused_power.launches`` counts the kernel launches and
+    ``fused_power.last_plan`` holds the last launch's :class:`Plan`."""
     if s.device.type == "cpu":
-        return fused_power_plain(s, w, bases, corr, tau_min=tau_min,
-                                 tile_d=tile_d, inv=inv)
+        return fused_power_plain(s, w, bases, sj, wc, tau_min=tau_min,
+                                 tile_d=tile_d, inv=inv, lpad=lpad,
+                                 n_samples=n_samples)
     _check(s.device.type == "cuda", f"unsupported device {s.device}")
     dev = s.device
-    _check(s.ndim == 3, "s must be (BP, M, N)")
-    BP, M, N = s.shape
+    _check(s.ndim == 3, "s must be (BP, M, NL)")
+    BP, M, NL = s.shape
+    N = int(n_samples)
     _check(s.dtype in (torch.float32, torch.bfloat16),
            f"s dtype {s.dtype} (float32 or bfloat16)")
     _check(w.dtype == s.dtype, "s and w must share one dtype")
@@ -230,35 +327,58 @@ def fused_power(s, w, bases, corr, *, tau_min: int, tile_d: int,
     _check(bases.dtype == torch.int32 and bases.shape == (DP // tile_d, M),
            "bases must be int32 (DP/tile_d, M)")
     tensors = [s, w, bases]
-    cc = 0
-    if corr is not None:
-        _check(corr.dtype == torch.float32 and corr.ndim == 3
-               and corr.shape[0] == BP and corr.shape[2] == DP
-               and corr.shape[1] <= N, "corr must be float32 (BP, cc<=N, DP)")
-        cc = corr.shape[1]
-        tensors.append(corr)
+    Tc = JM = 0
+    if wc is not None or sj is not None:
+        _check(isinstance(wc, HeadCorrections)
+               and wc.ptr.dtype == torch.int32 and wc.idx.dtype == torch.int32
+               and wc.val.dtype == torch.float32 and wc.idx.ndim == 1
+               and wc.val.shape == wc.idx.shape and wc.ptr.ndim == 1
+               and (wc.ptr.numel() - 1) % DP == 0,
+               "wc must be HeadCorrections of int32 ptr (DP*Tc + 1,) and "
+               "idx, float32 val of one length")
+        _check(sj is not None and sj.dtype == torch.float32 and sj.ndim == 2
+               and sj.shape[0] == BP, "sj must be float32 (BP, J*M) with wc")
+        Tc, JM = (wc.ptr.numel() - 1) // DP, sj.shape[1]
+        _check(Tc <= N, f"corrections span {Tc} samples, more than {N}")
+        tensors += [sj, *wc]
     _check(all(t.device == dev for t in tensors),
            "all tensors must be on one device")
     _check(all(t.is_contiguous() for t in tensors),
            "all tensors must be contiguous")
-    NI, MG, TKC, _ = plan(TK, N, M, tile_d)
+    _check(s.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0,
+           "s and w must be 16-byte aligned")
+    isz = s.element_size()
+    p = plan(N, M, TK, DP, BP, NL, isz, JM, Tc,
+             torch.cuda.get_device_properties(dev).multi_processor_count,
+             split)
+    _check(0 <= lpad and lpad - tau_min - TK + 1 >= 0
+           and NL >= lpad - tau_min + sample_cover(N, p.NS, p.NI)
+           and NL * isz % 16 == 0,
+           f"s rows (NL={NL}, lpad={lpad}) must hold every shifted read "
+           f"(row_layout)")
     lib = _lib()
     out = torch.empty((BP, DP), dtype=torch.float32, device=dev)
-    cptr = corr.data_ptr() if corr is not None else None
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.zrt_time_power(
-            s.data_ptr(), w.data_ptr(), bases.data_ptr(), cptr,
-            out.data_ptr(), BP, M, N, TK, DP, tile_d, int(tau_min), cc, MG,
-            TKC, NI, float(inv), int(s.dtype == torch.bfloat16), stream)
+            s.data_ptr(), w.data_ptr(), bases.data_ptr(),
+            sj.data_ptr() if Tc else None,
+            wc.ptr.data_ptr() if Tc else None,
+            wc.idx.data_ptr() if Tc else None,
+            wc.val.data_ptr() if Tc else None, out.data_ptr(),
+            BP, M, N, NL, int(lpad), TK, DP, tile_d, int(tau_min), Tc, JM,
+            p.G, p.NS, p.MG, p.NI, float(inv), int(s.dtype == torch.bfloat16),
+            int(STAGE_WEIGHTS), stream)
     if err != 0:
         raise RuntimeError(f"time_power kernel launch failed: "
                            f"{lib.zrt_cuda_error_string(err).decode()}")
     fused_power.launches += 1
+    fused_power.last_plan = p
     return out
 
 
 fused_power.launches = 0
+fused_power.last_plan = None
 
 
 class FusedBeamformer:
@@ -270,13 +390,14 @@ class FusedBeamformer:
         power = fused(frames)                   # (B, X, Y) or (X, Y)
 
     ``frames`` are ``(M, N)`` or ``(B, C, N)`` tensors or numpy arrays.
-    ``tile_d`` directions (8/16/32) make one block, with one frame; the
-    tap windows are planned at ``tile_d`` (:func:`_window_plan`).
-    ``mode`` follows the tables: ``bf16`` for bf16 weights, else ``high``
-    or ``f32`` (the same FP32 arithmetic).
+    The tap windows are planned at ``tile_d`` directions (8/16/32; 8 is
+    one warp's tile, :func:`_window_plan`).  ``mode`` follows the tables:
+    ``bf16`` for bf16 weights, else ``high`` or ``f32`` (the same FP32
+    arithmetic).  The class holds the windowed weights, their bases and
+    the sparse correction list (:attr:`table_bytes`).
     """
 
-    def __init__(self, t, tile_d: int = 32):
+    def __init__(self, t, tile_d: int = 8):
         if tile_d not in TILE_DS:
             raise ValueError(f"tile_d must be one of {TILE_DS}")
         self.t = t
@@ -290,32 +411,50 @@ class FusedBeamformer:
         self.D, self.T, self.M, self.N = D, T, M, N
         self.tile_d = tile_d
         self.DP = _round_up(D, tile_d)
-        tc = 0 if t.Wc is None else t.Wc.shape[2]
-        self.cc = min(max(8, _round_up(tc, 8)), N)
-        self.tau_min, self.corr_js = t.tau_min, t.corr_js
+        self.Tc = 0 if t.Wc is None else t.Wc.shape[2]
+        self.JM = len(t.corr_js) * M if self.Tc else 0
+        self.tau_min = t.tau_min
         self.res_x, self.res_y = t.res_x, t.res_y
         bases, self.TK = _window_plan(t.W.float().cpu().numpy(), tile_d)
         self.bases = torch.from_numpy(bases).to(self.device)
         self.Wp = _prep_weights(t.W, self.bases, self.TK, tile_d, self.DP,
                                 self.plane_dtype)
-        # the Hopper plan; raises here, not at the first call, if no block fits
-        self.plan = plan(self.TK, N, M, tile_d)
-        self.corr_w = _prep_corr_weights(t.Wc, self.cc, self.DP)
+        self.lpad, self.NL = row_layout(t.tau_min, T, N)
+        self.wc = (make_head_corrections(t.Wc, self.DP) if self.Tc
+                   else None)
+        self._js = torch.tensor(t.corr_js, dtype=torch.long,
+                                device=self.device)
+        # the Hopper plan of one frame; raises here, not at the first
+        # call, if no block fits
+        plan(N, M, self.TK, self.DP, 1, self.NL,
+             self.Wp.element_size(), self.JM, self.Tc)
         ident = torch.arange(M, device=self.device)
         # identity active-mic set -> slice the leading M rows, no gather
         self.adaptive = (None if torch.equal(t.adaptive, ident)
                          else t.adaptive)
         self.inv = float(np.float32(1.0 / (N * M * M)))
+        self.kernel_kw = dict(tau_min=self.tau_min, tile_d=tile_d,
+                              inv=self.inv, lpad=self.lpad, n_samples=N)
+
+    @property
+    def table_bytes(self) -> int:
+        """Bytes of the tables the class holds on its device."""
+        ts = [self.Wp, self.bases] + (list(self.wc) if self.wc else [])
+        return sum(t.numel() * t.element_size() for t in ts)
 
     def kernel_inputs(self, signals: torch.Tensor):
-        """The forward's prologue: (B, C, N) frames -> ``(s, corr)``, the
-        per-call kernel inputs (active-mic gather, plane dtype, and the
-        correction product)."""
+        """The forward's prologue: (B, C, N) frames -> ``(s, sj)``, the
+        per-call kernel inputs: the active mics' padded rows in the plane
+        dtype (:func:`row_layout`) and the correction sample columns
+        ``sj[b, j*M + m] = s[b, m, corr_js[j]]`` in FP32 (None without
+        corrections)."""
         sf = (signals[:, self.adaptive, :] if self.adaptive is not None
               else signals[:, :self.M, :]).float()
-        s = sf.to(self.plane_dtype).contiguous()
-        corr = _prep_corr(sf, self.corr_w, self.corr_js, self.cc, self.DP)
-        return s, corr
+        s = F_.pad(sf.to(self.plane_dtype),
+                   (self.lpad, self.NL - self.lpad - self.N)).contiguous()
+        sj = (sf[:, :, self._js].transpose(1, 2).reshape(len(sf), self.JM)
+              .contiguous() if self.Tc else None)
+        return s, sj
 
     def __call__(self, signals) -> torch.Tensor:
         signals = torch.as_tensor(signals, device=self.device)
@@ -323,9 +462,8 @@ class FusedBeamformer:
         if squeeze:
             signals = signals[None]
         B = signals.shape[0]
-        s, corr = self.kernel_inputs(signals)
-        power = fused_power(s, self.Wp, self.bases, corr,
-                            tau_min=self.tau_min, tile_d=self.tile_d,
-                            inv=self.inv)
+        s, sj = self.kernel_inputs(signals)
+        power = fused_power(s, self.Wp, self.bases, sj, self.wc,
+                            **self.kernel_kw)
         power = power[:, :self.D].reshape(B, self.res_x, self.res_y)
         return power[0] if squeeze else power

@@ -86,6 +86,7 @@ BF16_TC_FLOPS = 989e12
 FULLRATE_BATCH = 16
 FULLRATE_CHANNELS = 192    # the 3 connected arrays of Config()
 FULLRATE_SECONDS = 4.0
+SLEEP_CYCLES = 100_000_000   # about 50 ms of the SM clock: the host's lead
 
 
 def zero_counts() -> None:
@@ -173,11 +174,16 @@ def nbytes(*tensors) -> int:
 
 
 def time_ms(fn, iters: int) -> float:
-    """Mean device time of ``fn`` over ``iters`` launches (CUDA events)."""
+    """Mean device time of ``fn`` over ``iters`` launches (CUDA events).
+    A sleep kernel ahead of the start event lets the host queue the
+    launches first, so that the host's time between small kernels does
+    not count as theirs (a function that waits for the device inside
+    still counts its waits)."""
     fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(SLEEP_CYCLES)
     start.record()
     for _ in range(iters):
         fn()

@@ -9,9 +9,8 @@ but the time-domain one) and the whole call.  Imports nothing of JAX.
     python3 scripts/profile_time_power.py [--iters 20] [--sweep]
 
 ``--sweep`` instead times the kernel alone (CUDA events) at every block
-split (G warp tiles x NS sample splits) with the weights staged in shared
-memory and read from device memory, at B=1 and 16: the data behind the
-plan's choices.
+split (G warp tiles x NS sample splits) at B=1 and 16: the data behind
+the plan's choices.
 """
 
 from __future__ import annotations
@@ -30,7 +29,7 @@ from profile_equiv_fd import kernel_times  # noqa: E402
 
 
 def sweep(fk, fb, frames, card: str, iters: int) -> None:
-    """The kernel at every split, weights staged and not, B=1 and 16."""
+    """The kernel at every split, B=1 and 16."""
     from profile_equiv_fd import event_ms
 
     for B in (1, 16):
@@ -38,28 +37,23 @@ def sweep(fk, fb, frames, card: str, iters: int) -> None:
         args = (s, fb.Wp, fb.bases, sj, fb.wc)
         auto = fk.plan(fb.N, fb.M, fb.TK, fb.DP, B, fb.NL,
                        fb.Wp.element_size(), fb.JM, fb.Tc)
-        for stage_w in (True, False):
-            fk.STAGE_WEIGHTS = stage_w
-            times = []
-            for NS in fk.sample_splits(fb.N):
-                for G in range(1, fk.MAX_WARPS // NS + 1):
-                    ms = event_ms(lambda: fk.fused_power(
-                        *args, split=(G, NS), **fb.kernel_kw), iters)
-                    p = fk.fused_power.last_plan
-                    mark = "*" if (G, NS) == (auto.G, auto.NS) else ""
-                    times.append(f"{G}x{NS}{mark}/MG{p.MG}:{ms:.4f}")
-            print(f"[sweep {fb.t.algorithm} {fb.mode} B={B} Tw={fb.TK}] "
-                  f"weights {'staged' if stage_w else 'from device memory'}"
-                  f": ms by GxNS (* the plan's) {' '.join(times)} [{card}]")
-        fk.STAGE_WEIGHTS = True
+        times = []
+        for NS in fk.sample_splits(fb.N):
+            for G in range(1, fk.MAX_WARPS // NS + 1):
+                ms = event_ms(lambda: fk.fused_power(
+                    *args, split=(G, NS), **fb.kernel_kw), iters)
+                p = fk.fused_power.last_plan
+                mark = "*" if (G, NS) == (auto.G, auto.NS) else ""
+                times.append(f"{G}x{NS}{mark}/MG{p.MG}:{ms:.4f}")
+        print(f"[sweep {fb.t.algorithm} {fb.mode} B={B} Tw={fb.TK}] ms by "
+              f"GxNS (* the plan's) {' '.join(times)} [{card}]")
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--iters", type=int, default=20)
     ap.add_argument("--sweep", action="store_true",
-                    help="time the kernel at every split, weights staged "
-                         "and not")
+                    help="time the kernel at every block split")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_time_power: needs a CUDA GPU", file=sys.stderr)

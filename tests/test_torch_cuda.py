@@ -321,7 +321,7 @@ def test_time_kernel_every_split(cuda, algorithm, mode, B):
         assert split is None or (p.G, p.NS) == split
         assert tf._lib().zrt_time_power_smem(
             int(mode == "bf16"), fused.NL, fused.TK, fused.M, fused.JM,
-            fused.Tc, p.G, p.NS, p.MG, int(tf.STAGE_WEIGHTS)) == p.smem
+            fused.Tc, p.G, p.NS, p.MG) == p.smem
         np.testing.assert_allclose(got.cpu().numpy(), ref, rtol=TIME_RTOL,
                                    atol=1e-14, err_msg=f"plan {p}")
 

@@ -48,7 +48,9 @@
 //   are summed per split and the splits added in a fixed order.
 // * Staging overlaps the product: two buffers of (MG rows, G weight
 //   tiles); group k+1 is copied while group k is multiplied, with one
-//   barrier per group.
+//   barrier per group.  Staged weights (broadcast shared-memory loads)
+//   beat warp-uniform 16-byte loads from device memory at every block
+//   split timed (PERF.md, PR 6).
 // * Corrections from the sparse list: before the K loop each thread takes
 //   rows (d, c) of the block's directions and sums val * sj over the row
 //   (eight entries' loads in flight, sj staged in shared memory); the
@@ -121,11 +123,11 @@ struct Layout {
 };
 
 Layout layout(int isz, int NL, int TK, int M, int JM, int Tc, int G, int NS,
-              int MG, bool ws) {
+              int MG) {
   Layout L;
   L.rows = 0;
   L.wts = L.rows + r16((size_t)2 * MG * NL * isz);
-  L.bases = L.wts + (ws ? r16((size_t)2 * G * MG * TK * DW * isz) : 0);
+  L.bases = L.wts + r16((size_t)2 * G * MG * TK * DW * isz);
   L.sj = L.bases + r16((size_t)G * M * 4);
   L.corr = L.sj + r16((size_t)JM * 4);
   L.red = L.corr + r16((size_t)G * Tc * DW * 4);
@@ -133,7 +135,7 @@ Layout layout(int isz, int NL, int TK, int M, int JM, int Tc, int G, int NS,
   return L;
 }
 
-template <typename T, int NI, bool WS>
+template <typename T, int NI>
 __global__ void __launch_bounds__(MAX_WARPS * 32, MIN_BLOCKS)
 time_power_kernel(const T* __restrict__ s, const T* __restrict__ w,
                   const int* __restrict__ bases,
@@ -181,10 +183,6 @@ time_power_kernel(const T* __restrict__ s, const T* __restrict__ w,
     const int n_rows = mg * NL / CH;
     for (int c = tid; c < n_rows; c += nthreads)
       cp_async16(dst + 16 * c, src + 16 * c);
-    if (!WS) {
-      cp_async_commit();
-      return;
-    }
     constexpr int CPR = DW / CH;              // chunks of 8 weights
     const int wr = mg * TK;
     const int n_w = gt * wr * CPR;
@@ -268,18 +266,15 @@ time_power_kernel(const T* __restrict__ s, const T* __restrict__ w,
     if (q + 1 < n_stage) stage(q + 1);
     if (active) {
       const T* rb = rows + (q & 1) * row_stage + lpad - tau_min + n0 + lane;
-      // the weights of (mic, tap) in the stage, or in w itself
-      const T* wb = WS ? wts + (q & 1) * G * w_tile + gi * w_tile
-                       : w + (size_t)m0 * TK * DP + (size_t)(t0 + gi) * DW;
-      const size_t wj = WS ? DW : DP;
+      const T* wb = wts + (q & 1) * G * w_tile + gi * w_tile;
       for (int mm = 0; mm < mg; ++mm) {
         // row index of sample n at tap j: lpad + n - tau_min - base - j
         const T* xr = rb + (size_t)mm * NL - my_bases[m0 + mm];
-        const T* wr = wb + (size_t)mm * TK * wj;
+        const T* wr = wb + (size_t)mm * TK * DW;
 #pragma unroll 2
         for (int j = 0; j < TK; ++j) {
           float wv[DW];
-          load8(wr + j * wj, wv);
+          load8(wr + j * DW, wv);
           const T* xj = xr - j;
 #pragma unroll
           for (int i = 0; i < NI; ++i) {
@@ -328,13 +323,13 @@ time_power_kernel(const T* __restrict__ s, const T* __restrict__ w,
   }
 }
 
-template <typename T, int NI, bool WS>
+template <typename T, int NI>
 int launch(const void* s, const void* w, const int* bases, const float* sj,
            const int* wc_ptr, const int* wc_idx, const float* wc_val,
            float* out, const Layout& L, int BP, int M, int N, int NL,
            int lpad, int TK, int DP, int tile_d, int tau_min, int Tc, int JM,
            int G, int NS, int MG, float inv, cudaStream_t stream) {
-  auto kern = time_power_kernel<T, NI, WS>;
+  auto kern = time_power_kernel<T, NI>;
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L.total);
   if (e != cudaSuccess) return (int)e;
@@ -348,20 +343,20 @@ int launch(const void* s, const void* w, const int* bases, const float* sj,
 }
 
 template <typename T>
-int dispatch(int NI, bool ws, const void* s, const void* w, const int* bases,
+int dispatch(int NI, const void* s, const void* w, const int* bases,
              const float* sj, const int* wc_ptr, const int* wc_idx,
              const float* wc_val, float* out, const Layout& L, int BP, int M,
              int N, int NL, int lpad, int TK, int DP, int tile_d,
              int tau_min, int Tc, int JM, int G, int NS, int MG, float inv,
              cudaStream_t st) {
-#define ZRT_LAUNCH(ni, ws)                                                  \
-  launch<T, ni, ws>(s, w, bases, sj, wc_ptr, wc_idx, wc_val, out, L, BP, M, \
-                    N, NL, lpad, TK, DP, tile_d, tau_min, Tc, JM, G, NS, MG, \
-                    inv, st)
+#define ZRT_LAUNCH(ni)                                                       \
+  launch<T, ni>(s, w, bases, sj, wc_ptr, wc_idx, wc_val, out, L, BP, M, N, \
+                NL, lpad, TK, DP, tile_d, tau_min, Tc, JM, G, NS, MG, inv,   \
+                st)
   switch (NI) {
-    case 2: return ws ? ZRT_LAUNCH(2, true) : ZRT_LAUNCH(2, false);
-    case 4: return ws ? ZRT_LAUNCH(4, true) : ZRT_LAUNCH(4, false);
-    case 8: return ws ? ZRT_LAUNCH(8, true) : ZRT_LAUNCH(8, false);
+    case 2: return ZRT_LAUNCH(2);
+    case 4: return ZRT_LAUNCH(4);
+    case 8: return ZRT_LAUNCH(8);
     default: return (int)cudaErrorInvalidValue;
   }
 #undef ZRT_LAUNCH
@@ -386,7 +381,7 @@ int zrt_time_power(const void* s, const void* w, const int* bases,
                    const float* wc_val, float* out, int BP, int M, int N,
                    int NL, int lpad, int TK, int DP, int tile_d, int tau_min,
                    int Tc, int JM, int G, int NS, int MG, int NI, float inv,
-                   int bf16, int stage_w, void* stream) {
+                   int bf16, void* stream) {
   const int isz = bf16 ? 2 : 4;
   const int NB = 32 * NI * NS;
   const long cover = (long)(N + NB - 1) / NB * NB;
@@ -401,26 +396,23 @@ int zrt_time_power(const void* s, const void* w, const int* bases,
       reinterpret_cast<uintptr_t>(s) % 16 ||
       reinterpret_cast<uintptr_t>(w) % 16)
     return (int)cudaErrorInvalidValue;
-  const Layout L =
-      layout(isz, NL, TK, M, Tc ? JM : 0, Tc, G, NS, MG, stage_w != 0);
+  const Layout L = layout(isz, NL, TK, M, Tc ? JM : 0, Tc, G, NS, MG);
   if (L.total > (size_t)SMEM_MAX) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const bool ws = stage_w != 0;
   if (bf16)
-    return dispatch<__nv_bfloat16>(NI, ws, s, w, bases, sj, wc_ptr, wc_idx,
+    return dispatch<__nv_bfloat16>(NI, s, w, bases, sj, wc_ptr, wc_idx,
                                    wc_val, out, L, BP, M, N, NL, lpad, TK,
                                    DP, tile_d, tau_min, Tc, Tc ? JM : 0, G,
                                    NS, MG, inv, st);
-  return dispatch<float>(NI, ws, s, w, bases, sj, wc_ptr, wc_idx, wc_val,
+  return dispatch<float>(NI, s, w, bases, sj, wc_ptr, wc_idx, wc_val,
                          out, L, BP, M, N, NL, lpad, TK, DP, tile_d, tau_min,
                          Tc, Tc ? JM : 0, G, NS, MG, inv, st);
 }
 
 // Shared-memory bytes of one block (the Python plan mirrors it).
 long zrt_time_power_smem(int bf16, int NL, int TK, int M, int JM, int Tc,
-                         int G, int NS, int MG, int stage_w) {
-  return (long)layout(bf16 ? 2 : 4, NL, TK, M, JM, Tc, G, NS, MG,
-                      stage_w != 0).total;
+                         int G, int NS, int MG) {
+  return (long)layout(bf16 ? 2 : 4, NL, TK, M, JM, Tc, G, NS, MG).total;
 }
 
 const char* zrt_cuda_error_string(int err) {

@@ -73,9 +73,6 @@ BLOCK_RESERVED = 1024           # ... of which the runtime keeps 1 KB a block
 SMS = 132                       # SMs of an H100 SXM (the CPU plan's card)
 MGS = (16, 8, 4, 2, 1)          # mics a stage, largest first
 ROW_ALIGN = 8                   # elements a padded row rounds to (>= 16 B)
-# the weights of each mic group staged in shared memory beside its rows
-# (True), or read by the warps from device memory (False)
-STAGE_WEIGHTS = True
 
 
 def _round_up(x: int, m: int) -> int:
@@ -155,15 +152,14 @@ def row_layout(tau_min: int, taps: int, N: int) -> tuple:
 
 
 def smem_bytes(itemsize: int, NL: int, TK: int, M: int, JM: int, Tc: int,
-               G: int, NS: int, MG: int, stage_w: bool = True) -> int:
+               G: int, NS: int, MG: int) -> int:
     """Shared memory of one block (mirrors ``layout`` in the .cu): two
     stages of rows and weights in the plane type, then the bases, the sj
     row, the corrections and the split sums."""
     def r16(x):
         return _round_up(x, 16)
 
-    wts = r16(2 * G * MG * TK * DW * itemsize) if stage_w else 0
-    return (r16(2 * MG * NL * itemsize) + wts
+    return (r16(2 * MG * NL * itemsize) + r16(2 * G * MG * TK * DW * itemsize)
             + r16(G * M * 4) + r16(JM * 4) + r16(G * Tc * DW * 4)
             + r16(G * NS * DW * 4))
 
@@ -191,8 +187,8 @@ def plan(N: int, M: int, TK: int, DP: int, B: int, NL: int, itemsize: int,
     (B * DP/8 * NS of them), else the most; one frame needs them to fill
     the card, 16 frames do not.  G: the warp tiles a block whose launch
     puts the fewest warps on the busiest SM, then the fewest waves, the
-    most resident warps an SM and the most tiles (a frame is staged once
-    a block).  MG: the most mics a
+    most SMs busy, the most resident warps an SM and the most tiles (a
+    frame is staged once a block).  MG: the most mics a
     stage that keep WARPS_PER_SM warps an SM in shared memory.
     ``split=(G, NS)`` fixes both.  Raises ValueError when no block fits."""
     splits = sample_splits(N)
@@ -202,8 +198,7 @@ def plan(N: int, M: int, TK: int, DP: int, B: int, NL: int, itemsize: int,
         want = max(1, WARPS_PER_SM // (G * NS))
         best = None
         for MG in sorted({min(mg, M) for mg in MGS}, reverse=True):
-            sm = smem_bytes(itemsize, NL, TK, M, JM, Tc, G, NS, MG,
-                            STAGE_WEIGHTS)
+            sm = smem_bytes(itemsize, NL, TK, M, JM, Tc, G, NS, MG)
             if sm > SMEM_MAX:
                 continue
             bps = min(want, SM_SHARED // (sm + BLOCK_RESERVED))
@@ -228,8 +223,8 @@ def plan(N: int, M: int, TK: int, DP: int, B: int, NL: int, itemsize: int,
 
         def cost(p):
             return (-(-p.blocks // sms) * p.G * p.NS,
-                    -(-p.blocks // (sms * p.bps)), -p.bps * p.G * p.NS,
-                    -p.G)
+                    -(-p.blocks // (sms * p.bps)), -min(p.blocks, sms),
+                    -p.bps * p.G * p.NS, -p.G)
 
         p = min(cands, key=cost) if cands else None
     if p is None:
@@ -248,9 +243,9 @@ def _lib():
             p, p, p, p, p, p, p, p,                # s w bases sj ptr idx val out
             i, i, i, i, i, i, i, i, i,             # BP M N NL lpad TK DP tile_d tau_min
             i, i, i, i, i, i,                      # Tc JM G NS MG NI
-            ctypes.c_float, i, i, p]               # inv bf16 stage_w stream
+            ctypes.c_float, i, p]                  # inv bf16 stream
         lib.zrt_time_power_smem.restype = ctypes.c_long
-        lib.zrt_time_power_smem.argtypes = [i] * 10
+        lib.zrt_time_power_smem.argtypes = [i] * 9
         lib.zrt_cuda_error_string.restype = ctypes.c_char_p
         lib.zrt_cuda_error_string.argtypes = [i]
         lib._zrt_typed = True
@@ -368,7 +363,7 @@ def fused_power(s, w, bases, sj, wc, *, tau_min: int, tile_d: int,
             wc.val.data_ptr() if Tc else None, out.data_ptr(),
             BP, M, N, NL, int(lpad), TK, DP, tile_d, int(tau_min), Tc, JM,
             p.G, p.NS, p.MG, p.NI, float(inv), int(s.dtype == torch.bfloat16),
-            int(STAGE_WEIGHTS), stream)
+            stream)
     if err != 0:
         raise RuntimeError(f"time_power kernel launch failed: "
                            f"{lib.zrt_cuda_error_string(err).decode()}")

@@ -27,8 +27,8 @@ Phases (any failure raises, so the exit code is non-zero):
    at ``Config()`` lerp and hybrid, f32/high/bf16, B=1 and B=16, and
    against the exact FP32 product, with CUDA-event times of the prologue
    and the kernel, the plan (Tw, G, NS, MG), the table bytes the class
-   holds and the dense ``torch.matmul(W, Sdel)`` alone as a yardstick at
-   each B.
+   holds, the dense ``torch.matmul(W, Sdel)`` alone as a yardstick at
+   each B, and the wall time of one ``FusedBeamformer`` call.
 5. The live slice end to end: the native emulator on loopback ->
    ``Pipeline(..., power_backend="equiv_kernel", device="cuda")``, then
    ``Pipeline(..., power_fn=FusedEquivBeamformer(tables, sweep="fd"))`` ->
@@ -86,7 +86,6 @@ BF16_TC_FLOPS = 989e12
 FULLRATE_BATCH = 16
 FULLRATE_CHANNELS = 192    # the 3 connected arrays of Config()
 FULLRATE_SECONDS = 4.0
-SLEEP_CYCLES = 100_000_000   # about 50 ms of the SM clock: the host's lead
 
 
 def zero_counts() -> None:
@@ -174,22 +173,29 @@ def nbytes(*tensors) -> int:
 
 
 def time_ms(fn, iters: int) -> float:
-    """Mean device time of ``fn`` over ``iters`` launches (CUDA events).
-    A sleep kernel ahead of the start event lets the host queue the
-    launches first, so that the host's time between small kernels does
-    not count as theirs (a function that waits for the device inside
-    still counts its waits)."""
+    """Mean device time of ``fn`` over ``iters`` launches (CUDA events)."""
     fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(SLEEP_CYCLES)
     start.record()
     for _ in range(iters):
         fn()
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def call_ms(fn, iters: int) -> float:
+    """Mean wall time of ``fn`` and its wait for the device, a call at a
+    time (host clock): what a caller that reads each result waits."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+        torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / iters
 
 
 def in_turns(plain, kern, iters: int) -> tuple:
@@ -419,7 +425,7 @@ def phase_time_kernel_vs_plain(card: str) -> dict:
 
                 got, ref = kern(), plain()
                 torch.cuda.synchronize()
-                p = fk.fused_power.last_plan
+                p = fb.launch_plan(B)
                 shape = (B, fb.res_x, fb.res_y)
                 got = got[:B, :fb.D].reshape(shape)
                 ref = ref[:B, :fb.D].reshape(shape)
@@ -431,6 +437,7 @@ def phase_time_kernel_vs_plain(card: str) -> dict:
                 iters = 10 if B == 1 else 5
                 k_ms, p_ms = in_turns(plain, kern, iters)
                 pro_ms = time_ms(lambda: fb.kernel_inputs(x), iters)
+                wall_ms = call_ms(lambda: fb(x), iters)
                 # the dense product alone in the tables' dtype, at this B;
                 # the port never calls it
                 sdel = beamform.delay_lines(
@@ -455,7 +462,7 @@ def phase_time_kernel_vs_plain(card: str) -> dict:
                       f"FP32 {err_td:.3e} same peak {peak_td} | prologue "
                       f"{pro_ms:.4f} ms kernel {k_ms:.4f} ms plain "
                       f"{p_ms:.4f} ms dense matmul(W, Sdel) {lib_ms:.4f} ms "
-                      f"| bound {bd['bound_ms']:.4f} ms ({bd['bound_by']}, "
+                      f"| FusedBeamformer call {wall_ms:.4f} ms wall | bound {bd['bound_ms']:.4f} ms ({bd['bound_by']}, "
                       f"{bd['bound_ms'] / k_ms:.1%} of it) [{card}]")
                 if (algo, mode, B) == ("lerp", "f32", FULLRATE_BATCH):
                     main = dict(max_abs_err=abs_err, ms=k_ms, plain_ms=p_ms,

@@ -32,17 +32,25 @@ def sweep(fk, fb, frames, card: str, iters: int) -> None:
     """The kernel at every split, B=1 and 16."""
     from profile_equiv_fd import event_ms
 
+    auto_plan = fk.plan
     for B in (1, 16):
         s, sj = fb.kernel_inputs(frames[:B])
         args = (s, fb.Wp, fb.bases, sj, fb.wc)
-        auto = fk.plan(fb.N, fb.M, fb.TK, fb.DP, B, fb.NL,
-                       fb.Wp.element_size(), fb.JM, fb.Tc)
+        auto = fb.launch_plan(B)
         times = []
         for NS in fk.sample_splits(fb.N):
             for G in range(1, fk.MAX_WARPS // NS + 1):
-                ms = event_ms(lambda: fk.fused_power(
-                    *args, split=(G, NS), **fb.kernel_kw), iters)
-                p = fk.fused_power.last_plan
+                p = fk.block_plan(fb.N, fb.M, fb.TK, fb.DP, B, fb.NL,
+                                  fb.Wp.element_size(), fb.JM, fb.Tc, G, NS)
+                if p is None:
+                    continue
+                # fused_power launches whatever the module's plan returns
+                fk.plan = lambda *a, p=p: p
+                try:
+                    ms = event_ms(lambda: fk.fused_power(
+                        *args, **fb.kernel_kw), iters)
+                finally:
+                    fk.plan = auto_plan
                 mark = "*" if (G, NS) == (auto.G, auto.NS) else ""
                 times.append(f"{G}x{NS}{mark}/MG{p.MG}:{ms:.4f}")
         print(f"[sweep {fb.t.algorithm} {fb.mode} B={B} Tw={fb.TK}] ms by "

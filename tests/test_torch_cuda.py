@@ -223,12 +223,20 @@ def _plan(fused, dense):
                             fused.DP, fused.plane_dtype), bases
 
 
-def _run_time(fused, x, dense=False, split=None):
+def _fix_split(monkeypatch, fused, B, G, NS):
+    """Make ``fused_power`` launch blocks of G warp tiles x NS sample
+    splits for ``fused``'s windows; returns that plan."""
+    p = tf.block_plan(fused.N, fused.M, fused.TK, fused.DP, B, fused.NL,
+                      fused.Wp.element_size(), fused.JM, fused.Tc, G, NS)
+    monkeypatch.setattr(tf, "plan", lambda *args: p)
+    return p
+
+
+def _run_time(fused, x, dense=False):
     s, sj = fused.kernel_inputs(x)
     w, bases = _plan(fused, dense)
     before = tf.fused_power.launches
-    got = tf.fused_power(s, w, bases, sj, fused.wc, split=split,
-                         **fused.kernel_kw)
+    got = tf.fused_power(s, w, bases, sj, fused.wc, **fused.kernel_kw)
     torch.cuda.synchronize()
     assert tf.fused_power.launches == before + 1
     return got, tf.fused_power_plain(s, w, bases, sj, fused.wc,
@@ -300,7 +308,7 @@ def test_time_kernel_matches_plain_reference_shape(cuda, window, mode,
 @pytest.mark.parametrize("algorithm,mode", [("lerp", "f32"),
                                             ("hybrid", "bf16")])
 @pytest.mark.parametrize("B", [1, 3, 16, 37])
-def test_time_kernel_every_split(cuda, algorithm, mode, B):
+def test_time_kernel_every_split(cuda, monkeypatch, algorithm, mode, B):
     """``Config()`` at every block split the planner can take (G warp
     tiles x NS sample splits), against the plain version, and the plan's
     own choice."""
@@ -311,14 +319,15 @@ def test_time_kernel_every_split(cuda, algorithm, mode, B):
     s, sj = fused.kernel_inputs(x)
     ref = tf.fused_power_plain(s, fused.Wp, fused.bases, sj, fused.wc,
                                **fused.kernel_kw).cpu().numpy()
+    auto = fused.launch_plan(B)
     splits = [None] + [(G, NS) for NS in tf.sample_splits(fused.N)
                        for G in range(1, tf.MAX_WARPS // NS + 1)]
     for split in splits:
+        p = (auto if split is None
+             else _fix_split(monkeypatch, fused, B, *split))
         got = tf.fused_power(s, fused.Wp, fused.bases, sj, fused.wc,
-                             split=split, **fused.kernel_kw)
+                             **fused.kernel_kw)
         torch.cuda.synchronize()
-        p = tf.fused_power.last_plan
-        assert split is None or (p.G, p.NS) == split
         assert tf._lib().zrt_time_power_smem(
             int(mode == "bf16"), fused.NL, fused.TK, fused.M, fused.JM,
             fused.Tc, p.G, p.NS, p.MG) == p.smem
@@ -339,7 +348,7 @@ def test_time_kernel_deterministic(cuda, B):
     assert torch.equal(a, b)
 
 
-def test_time_kernel_checks_bases(cuda):
+def test_time_kernel_checks_bases(cuda, monkeypatch):
     """A base past the padded rows' margin would read outside them: the
     kernel writes NaN for its block instead, and the rest stays right."""
     t = tb.make_tables(Config.tiny(), "lerp", cache=False, device=cuda)
@@ -348,10 +357,11 @@ def test_time_kernel_checks_bases(cuda):
     s, sj = fused.kernel_inputs(x)
     bases = fused.bases.clone()
     bases[0, 0] = fused.lpad - fused.tau_min - fused.TK + 2
-    got = tf.fused_power(s, fused.Wp, bases, sj, fused.wc, split=(1, 1),
+    _fix_split(monkeypatch, fused, 2, 1, 1)
+    got = tf.fused_power(s, fused.Wp, bases, sj, fused.wc,
                          **fused.kernel_kw)
     ref = tf.fused_power(s, fused.Wp, fused.bases, sj, fused.wc,
-                         split=(1, 1), **fused.kernel_kw)
+                         **fused.kernel_kw)
     torch.cuda.synchronize()
     assert torch.isnan(got[:, :8]).all()
     assert torch.equal(got[:, 8:], ref[:, 8:])
@@ -390,7 +400,8 @@ def test_time_wrapper_rejects_bad_inputs(cuda):
     with pytest.raises(ValueError, match="rows"):
         tf.fused_power(s, w, b, sj, wc, **{**kw, "lpad": 0})
     with pytest.raises(ValueError, match="split"):
-        tf.fused_power(s, w, b, sj, wc, split=(8, 2), **kw)
+        tf.block_plan(fused.N, fused.M, fused.TK, fused.DP, 3, fused.NL,
+                      fused.Wp.element_size(), fused.JM, fused.Tc, 8, 2)
 
 
 def test_fused_policy_launches_kernel(cuda, monkeypatch):

@@ -282,10 +282,12 @@ def test_plan_fits_every_preset_shape(preset):
                 for B in (1, 3, 16, 37):
                     auto = tf.plan(N, M, T, DP, B, NL, isz, JM, Tc)
                     assert auto.NS in splits and auto.NI == splits[auto.NS]
+                    assert auto == tf.block_plan(N, M, T, DP, B, NL, isz,
+                                                 JM, Tc, auto.G, auto.NS)
                     for NS in splits:
                         for G in range(1, tf.MAX_WARPS // NS + 1):
-                            p = tf.plan(N, M, T, DP, B, NL, isz, JM, Tc,
-                                        split=(G, NS))
+                            p = tf.block_plan(N, M, T, DP, B, NL, isz, JM,
+                                              Tc, G, NS)
                             assert p.G * p.NS <= tf.MAX_WARPS
                             assert 1 <= p.MG <= M and 1 <= p.bps
                             assert p.smem <= tf.SMEM_MAX
@@ -298,7 +300,7 @@ def test_plan_fits_every_preset_shape(preset):
     with pytest.raises(ValueError, match="no shared-memory plan"):
         tf.plan(256, 256, 200000, 1824, 1, 304, 4)
     with pytest.raises(ValueError, match="split"):
-        tf.plan(256, 256, 5, 1824, 1, 304, 4, split=(4, 4))
+        tf.block_plan(256, 256, 5, 1824, 1, 304, 4, 0, 0, 4, 4)
 
 
 def _dense_corr(Wc, sf, corr_js, DP):

@@ -52,6 +52,7 @@ VMEM planner is replaced by a plan of H100 blocks (:func:`plan`).
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -178,59 +179,69 @@ class Plan(NamedTuple):
     blocks: int
 
 
+def block_plan(N: int, M: int, TK: int, DP: int, B: int, NL: int,
+               itemsize: int, JM: int, Tc: int, G: int,
+               NS: int) -> Optional[Plan]:
+    """The launch of ``B`` frames on blocks of G warp tiles x NS sample
+    splits, with the most mics a stage (MG) that keep WARPS_PER_SM warps
+    an SM in shared memory; None when no MG fits.  Raises ValueError for a
+    (G, NS) the kernel does not take."""
+    splits = sample_splits(N)
+    if NS not in splits or not 1 <= G <= MAX_WARPS // NS:
+        raise ValueError(f"time_power: split (G={G}, NS={NS}) not in "
+                         f"G*NS <= {MAX_WARPS}, NS in {sorted(splits)}")
+    want = max(1, WARPS_PER_SM // (G * NS))
+    best = None
+    for MG in sorted({min(mg, M) for mg in MGS}, reverse=True):
+        sm = smem_bytes(itemsize, NL, TK, M, JM, Tc, G, NS, MG)
+        if sm > SMEM_MAX:
+            continue
+        bps = min(want, SM_SHARED // (sm + BLOCK_RESERVED))
+        if best is None or bps > best.bps:
+            blocks = B * -(-(DP // DW) // G)
+            best = Plan(G, NS, splits[NS], MG, sm, bps, blocks)
+        if bps == want:
+            break
+    return best
+
+
+@functools.lru_cache(maxsize=256)
 def plan(N: int, M: int, TK: int, DP: int, B: int, NL: int, itemsize: int,
-         JM: int = 0, Tc: int = 0, sms: int = SMS,
-         split: Optional[tuple] = None) -> Plan:
-    """The Hopper plan of a launch of ``B`` frames.
+         JM: int = 0, Tc: int = 0, sms: int = SMS) -> Plan:
+    """The Hopper plan of a launch of ``B`` frames (memoized: a call's
+    host cost is one lookup).
 
     NS: the fewest sample splits that give every SM WARPS_PER_SM warps
     (B * DP/8 * NS of them), else the most; one frame needs them to fill
     the card, 16 frames do not.  G: the warp tiles a block whose launch
     puts the fewest warps on the busiest SM, then the fewest waves, the
     most SMs busy, the most resident warps an SM and the most tiles (a
-    frame is staged once a block).  MG: the most mics a
-    stage that keep WARPS_PER_SM warps an SM in shared memory.
-    ``split=(G, NS)`` fixes both.  Raises ValueError when no block fits."""
+    frame is staged once a block).  MG: :func:`block_plan`'s.  Raises
+    ValueError when no block fits."""
     splits = sample_splits(N)
-    n_t8 = DP // DW
-
-    def fit(G, NS):
-        want = max(1, WARPS_PER_SM // (G * NS))
-        best = None
-        for MG in sorted({min(mg, M) for mg in MGS}, reverse=True):
-            sm = smem_bytes(itemsize, NL, TK, M, JM, Tc, G, NS, MG)
-            if sm > SMEM_MAX:
-                continue
-            bps = min(want, SM_SHARED // (sm + BLOCK_RESERVED))
-            if best is None or bps > best.bps:
-                blocks = B * -(-n_t8 // G)
-                best = Plan(G, NS, splits[NS], MG, sm, bps, blocks)
-            if bps == want:
-                break
-        return best
-
-    if split is not None:
-        G, NS = (int(x) for x in split)
-        if NS not in splits or not 1 <= G <= MAX_WARPS // NS:
-            raise ValueError(f"time_power: split (G={G}, NS={NS}) not in "
-                             f"G*NS <= {MAX_WARPS}, NS in {sorted(splits)}")
-        p = fit(G, NS)
-    else:
-        NS = next((ns for ns in splits
-                   if B * n_t8 * ns >= sms * WARPS_PER_SM), max(splits))
-        cands = [p for p in (fit(G, NS) for G in range(1, MAX_WARPS // NS + 1))
-                 if p is not None]
-
-        def cost(p):
-            return (-(-p.blocks // sms) * p.G * p.NS,
-                    -(-p.blocks // (sms * p.bps)), -min(p.blocks, sms),
-                    -p.bps * p.G * p.NS, -p.G)
-
-        p = min(cands, key=cost) if cands else None
-    if p is None:
+    NS = next((ns for ns in splits
+               if B * (DP // DW) * ns >= sms * WARPS_PER_SM), max(splits))
+    cands = [p for p in (block_plan(N, M, TK, DP, B, NL, itemsize, JM, Tc,
+                                    G, NS)
+                         for G in range(1, MAX_WARPS // NS + 1))
+             if p is not None]
+    if not cands:
         raise ValueError(f"time_power: no shared-memory plan for TK={TK} "
                          f"N={N} M={M}")
-    return p
+
+    def cost(p):
+        return (-(-p.blocks // sms) * p.G * p.NS,
+                -(-p.blocks // (sms * p.bps)), -min(p.blocks, sms),
+                -p.bps * p.G * p.NS, -p.G)
+
+    return min(cands, key=cost)
+
+
+@functools.lru_cache(maxsize=16)
+def device_sms(index: int) -> int:
+    """SMs of CUDA device ``index``."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
 
 def _lib():
     from . import _build
@@ -293,15 +304,14 @@ def fused_power_plain(s, w, bases, sj, wc, *, tau_min: int, tile_d: int,
 
 
 def fused_power(s, w, bases, sj, wc, *, tau_min: int, tile_d: int,
-                inv: float, lpad: int, n_samples: int,
-                split: Optional[tuple] = None) -> torch.Tensor:
+                inv: float, lpad: int, n_samples: int) -> torch.Tensor:
     """Fused time-domain power, (BP, DP) float32.
 
     On CPU tensors this is :func:`fused_power_plain`.  On CUDA tensors it
-    launches the ``sm_90a`` kernel on :func:`plan`'s blocks (``split=(G,
-    NS)`` fixes them) or raises; there is no fallback.
-    ``fused_power.launches`` counts the kernel launches and
-    ``fused_power.last_plan`` holds the last launch's :class:`Plan`."""
+    launches the ``sm_90a`` kernel on :func:`plan`'s blocks (``plan(N, M,
+    TK, DP, BP, NL, itemsize, JM, Tc, device_sms(index))``) or raises;
+    there is no fallback.  ``fused_power.launches`` counts the kernel
+    launches."""
     if s.device.type == "cpu":
         return fused_power_plain(s, w, bases, sj, wc, tau_min=tau_min,
                                  tile_d=tile_d, inv=inv, lpad=lpad,
@@ -344,8 +354,8 @@ def fused_power(s, w, bases, sj, wc, *, tau_min: int, tile_d: int,
            "s and w must be 16-byte aligned")
     isz = s.element_size()
     p = plan(N, M, TK, DP, BP, NL, isz, JM, Tc,
-             torch.cuda.get_device_properties(dev).multi_processor_count,
-             split)
+             device_sms(dev.index if dev.index is not None
+                        else torch.cuda.current_device()))
     _check(0 <= lpad and lpad - tau_min - TK + 1 >= 0
            and NL >= lpad - tau_min + sample_cover(N, p.NS, p.NI)
            and NL * isz % 16 == 0,
@@ -368,12 +378,10 @@ def fused_power(s, w, bases, sj, wc, *, tau_min: int, tile_d: int,
         raise RuntimeError(f"time_power kernel launch failed: "
                            f"{lib.zrt_cuda_error_string(err).decode()}")
     fused_power.launches += 1
-    fused_power.last_plan = p
     return out
 
 
 fused_power.launches = 0
-fused_power.last_plan = None
 
 
 class FusedBeamformer:
@@ -419,8 +427,8 @@ class FusedBeamformer:
                    else None)
         self._js = torch.tensor(t.corr_js, dtype=torch.long,
                                 device=self.device)
-        # the Hopper plan of one frame; raises here, not at the first
-        # call, if no block fits
+        # the Hopper plan of one frame on a 132-SM card; raises here, not
+        # at the first call, if no block fits
         plan(N, M, self.TK, self.DP, 1, self.NL,
              self.Wp.element_size(), self.JM, self.Tc)
         ident = torch.arange(M, device=self.device)
@@ -436,6 +444,15 @@ class FusedBeamformer:
         """Bytes of the tables the class holds on its device."""
         ts = [self.Wp, self.bases] + (list(self.wc) if self.wc else [])
         return sum(t.numel() * t.element_size() for t in ts)
+
+    def launch_plan(self, B: int) -> Plan:
+        """The :class:`Plan` :func:`fused_power` launches for ``B`` frames
+        on the class's CUDA device."""
+        index = (self.device.index if self.device.index is not None
+                 else torch.cuda.current_device())
+        return plan(self.N, self.M, self.TK, self.DP, B, self.NL,
+                    self.Wp.element_size(), self.JM, self.Tc,
+                    device_sms(index))
 
     def kernel_inputs(self, signals: torch.Tensor):
         """The forward's prologue: (B, C, N) frames -> ``(s, sj)``, the

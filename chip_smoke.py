@@ -40,9 +40,23 @@ Phases (any failure raises, so the exit code is non-zero):
    auto policy's ``power_backend="equiv_kernel"`` and
    ``FusedEquivBeamformer(tables, sweep="fd")``; each run must skip no
    frame, lose no packet, launch its kernel once per batch, and match the
-   plain FP32 ``steered_power`` on one batch it received.
-7. Policy: bf16 tables outside the equiv bar select the fused time-domain
+   plain FP32 ``steered_power`` on one batch it received.  Then the
+   policy: bf16 tables outside the equiv bar select the fused time-domain
    kernel, which launches.
+7. Listening at ``Config()`` lerp: (a) the combined full-rate stage
+   (``make_mimo_miso_batched``: heatmaps and the steered beam from one
+   transfer; K=16, 192 channels, 4 s at line rate) through the policy at
+   ``high`` (K1) and through ``power_fn=FusedBeamformer(tables)``; each
+   run must skip no frame, lose no packet, zero-fill no audio frame,
+   write ``processed * 256`` samples, launch its kernel once per batch,
+   match ``steered_power`` on a recorded batch's maps and, after the gain
+   chain, row d of ``steered_beams`` on its beams (rtol 1e-4 / atol
+   1e-7); it prints processed/s, the audio e2e p50/p95 and the device
+   program per batch against the power program alone.  (b) The live
+   listening stage beside the live K1 heatmap stage, steered by
+   ``steer_cartesian_degree``: whole frames reach the sink, and a
+   received frame's audio passes the same gate.  (c) 20 of those maps
+   through ``viz.Front.multi_loop`` on an array display.
 
 The line before the last is a JSON record of the kernels; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -86,6 +100,10 @@ BF16_TC_FLOPS = 989e12
 FULLRATE_BATCH = 16
 FULLRATE_CHANNELS = 192    # the 3 connected arrays of Config()
 FULLRATE_SECONDS = 4.0
+# phase 7: the steered direction, and the gate of the gain-scaled beams
+# against the plain beam (the JAX package's tests/test_fullrate.py:204,258)
+LISTEN_AZ, LISTEN_EL = 10.0, -5.0
+LISTEN_RTOL, LISTEN_ATOL = 1e-4, 1e-7
 
 
 def zero_counts() -> None:
@@ -607,22 +625,16 @@ class _Recorder:
         return out
 
 
-def _fullrate_run(label: str, make_pipeline, counter) -> dict:
-    """One full-rate run: the stage built and warmed up, the emulator at
-    line rate, every launch count set to 0 just before the run and the
-    path's kernel's (``counter``) read just after it."""
+def _line_rate(p, stage, counter) -> tuple:
+    """Drive a built, warmed-up full-rate stage of ``p``: the native
+    emulator at line rate for FULLRATE_SECONDS, every launch count set to
+    0 just before the run and the path's kernel's (``counter``) read just
+    after it.  Returns (launches, seconds, packets sent, the emulator's
+    count every 0.25 s)."""
     from zybo_rt_sampler_image_detection_torch.ingest.streamer import (
         NativeStreamer)
-    from zybo_rt_sampler_image_detection_torch.ops import beamform
 
-    p, rec = make_pipeline()
     cfg = p.cfg
-    stage = p.make_heatmap_batched(batch=FULLRATE_BATCH,
-                                   channels=FULLRATE_CHANNELS,
-                                   sink=lambda powers, first_seq: None)
-    stage.warmup()
-    rec.x = rec.y = None
-    rec.calls = 0
     t = np.arange(cfg.n_samples * 64) / cfg.sample_rate
     sig = (np.tile(np.sin(2 * np.pi * 8000.0 * t).astype(np.float32),
                    (FULLRATE_CHANNELS, 1))
@@ -647,6 +659,23 @@ def _fullrate_run(label: str, make_pipeline, counter) -> dict:
         launches = getattr(*counter)
         elapsed = time.perf_counter() - t0
         emu.stop()
+    return launches, elapsed, sent, marks
+
+
+def _fullrate_run(label: str, make_pipeline, counter) -> dict:
+    """One full-rate run: the stage built and warmed up, then driven at
+    line rate (:func:`_line_rate`)."""
+    from zybo_rt_sampler_image_detection_torch.ops import beamform
+
+    p, rec = make_pipeline()
+    cfg = p.cfg
+    stage = p.make_heatmap_batched(batch=FULLRATE_BATCH,
+                                   channels=FULLRATE_CHANNELS,
+                                   sink=lambda powers, first_seq: None)
+    stage.warmup()
+    rec.x = rec.y = None
+    rec.calls = 0
+    launches, elapsed, sent, marks = _line_rate(p, stage, counter)
     rep = p.report()
     gaps = p.receiver.native_stats.gaps
     line_rate = cfg.sample_rate / cfg.n_samples
@@ -798,6 +827,247 @@ def phase_policy():
     assert same and err <= BF16_CLASS
 
 
+class _PairRecorder:
+    """Wraps the combined stage's ``process_fn`` and keeps one batch it
+    computed (input, direction, maps and beams), for the checks against
+    the plain products."""
+
+    def __init__(self, fn, keep_after: int = 8):
+        self.fn, self.keep_after = fn, keep_after
+        self.reset()
+
+    def reset(self):
+        self.calls, self.x = 0, None
+
+    def __call__(self, frames, d):
+        powers, beams = self.fn(frames, d)
+        self.calls += 1
+        if self.x is None and self.calls > self.keep_after:
+            self.x, self.d = frames.clone(), d
+            self.y, self.b = powers.clone(), beams.clone()
+        return powers, beams
+
+
+def _beam_errors(got: np.ndarray, ref: np.ndarray) -> tuple:
+    """(max abs err, max abs err over rtol*|ref| + atol) of the gain-scaled
+    beams; the gate holds when the second is <= 1."""
+    excess = np.abs(got - ref) / (LISTEN_RTOL * np.abs(ref) + LISTEN_ATOL)
+    return float(np.abs(got - ref).max()), float(excess.max())
+
+
+def _plain_beams(p, x: torch.Tensor, d: int) -> np.ndarray:
+    """The plain beams of ``x`` toward ``d``: row d of the all-direction
+    ``steered_beams`` (one dense product, not ``miso_beam``), through the
+    pipeline's gain chain."""
+    from zybo_rt_sampler_image_detection_torch.ops import beamform
+
+    ref = beamform.steered_beams(x, p.tables)[..., d, :]
+    return p._gain(ref.cpu().numpy())
+
+
+def _listen_run(label: str, p, counter, card: str) -> dict:
+    """One combined full-rate run (heatmaps and the beam from one
+    transfer): built, steered, warmed up, driven at line rate; then the
+    contract, a recorded batch against the plain products, the audio e2e
+    latency, and the device program against the power program alone."""
+    from zybo_rt_sampler_image_detection_torch.apps import pipeline
+    from zybo_rt_sampler_image_detection_torch.ops import beamform
+    from zybo_rt_sampler_image_detection_torch.utils import audio
+
+    cfg = p.cfg
+    N, n_full = cfg.n_samples, cfg.n_microphones
+    sink = audio.NullSink()
+    stage = p.make_mimo_miso_batched(batch=FULLRATE_BATCH,
+                                     channels=FULLRATE_CHANNELS, sink=sink,
+                                     power_sink=lambda powers, first: None)
+    d = p.steer_cartesian_degree(LISTEN_AZ, LISTEN_EL)
+    stage.process_fn = rec = _PairRecorder(stage.process_fn)
+    stage.warmup()
+    rec.reset()
+    launches, elapsed, sent, marks = _line_rate(p, stage, counter)
+    rep = p.report()[stage.metric.name]
+    gaps = p.receiver.native_stats.gaps
+    line_rate = cfg.sample_rate / N
+    lat = stage.audio_latency()
+    print(f"[listen] {label}: processed {stage.processed} frames in "
+          f"{elapsed:.2f} s ({stage.processed / elapsed:.1f}/s vs line rate "
+          f"{line_rate:.1f}/s); skipped {stage.skipped}; ingest gaps {gaps}; "
+          f"underrun frames {stage.underrun_frames}; samples "
+          f"{stage.samples}; kernel launches {launches}; batch latency p50 "
+          f"{rep['latency_p50_ms']} ms p95 {rep['latency_p95_ms']} ms; "
+          f"audio e2e p50 {lat.get('audio_e2e_p50_ms')} ms p95 "
+          f"{lat.get('audio_e2e_p95_ms')} ms (newest frame p50 "
+          f"{lat.get('audio_e2e_newest_p50_ms')} ms); emulator "
+          f"{sent / FULLRATE_SECONDS:.0f} pkt/s; packets per 0.25 s "
+          f"{np.diff(marks).tolist()} [{card}]")
+    assert stage.processed > 0, "no batch processed"
+    assert stage.skipped == 0, f"{label}: {stage.skipped} frames skipped"
+    assert gaps == 0, f"{label}: {gaps} ingest gaps"
+    assert stage.underrun_frames == 0, f"{label}: underruns"
+    assert stage.samples == stage.processed * N == sink.frames, (
+        f"{label}: {stage.samples} samples for {stage.processed} frames")
+    assert launches * FULLRATE_BATCH >= stage.processed, (
+        f"{label}: {launches} launches for {stage.processed} frames")
+    assert lat, f"{label}: no audio latency recorded"
+
+    assert rec.x is not None and rec.d == d, "no batch recorded"
+    x = pipeline._pad_full(rec.x, n_full)
+    err = rel_err(rec.y, beamform.steered_power(x, p.tables))
+    got_b = p._gain(rec.b.cpu().numpy())
+    abs_b, excess = _beam_errors(got_b, _plain_beams(p, x, d))
+    print(f"[listen] {label}: a received batch (direction {d}): maps vs "
+          f"plain FP32 steered_power max rel err {err:.3e} (tol "
+          f"{E2E_RTOL:.0e}); beams after miso_gain vs row {d} of "
+          f"steered_beams max abs err {abs_b:.3e} ({excess:.3f} of the "
+          f"rtol {LISTEN_RTOL:.0e} / atol {LISTEN_ATOL:.0e} gate)")
+    assert torch.isfinite(rec.y).all() and err <= E2E_RTOL, label
+    assert np.isfinite(got_b).all() and excess <= 1.0, label
+
+    # the device program per batch, CUDA events, in turns: the combined
+    # program against the power program alone (the beam's added cost)
+    xs = rec.x.contiguous()
+    power_fn = p._power_fn or pipeline._batched_power_program(p.tables,
+                                                              n_full)
+    comb_ms, power_ms = in_turns(
+        lambda: power_fn(pipeline._pad_full(xs, n_full)),
+        lambda: stage.process_fn.fn(xs, d), 10)
+    beam_ms = time_ms(
+        lambda: beamform.miso_beam(pipeline._pad_full(xs, n_full), p.tables,
+                                   d), 10)
+    print(f"[listen] {label}: device program per batch of "
+          f"{FULLRATE_BATCH}: maps + beam {comb_ms:.3f} ms, power program "
+          f"alone {power_ms:.3f} ms (+{comb_ms - power_ms:.3f} ms), beam "
+          f"alone {beam_ms:.3f} ms [{card}]")
+    out = dict(launches=launches, processed=stage.processed,
+               ms=comb_ms, power_ms=power_ms, **lat)
+    del stage, rec
+    return out
+
+
+def phase_listen_fullrate(card: str) -> dict:
+    """Phase 7 (a): the combined full-rate stage through the policy (K1 at
+    ``high``) and through ``power_fn=FusedBeamformer(tables)``."""
+    from zybo_rt_sampler_image_detection_torch.apps import pipeline
+    from zybo_rt_sampler_image_detection_torch.config import Config
+    from zybo_rt_sampler_image_detection_torch.ops import (
+        beamform, equiv_kernel as ek, fused_kernel as fk)
+
+    cfg = Config()
+    p = pipeline.Pipeline(cfg.replace(matmul_precision="high"), "lerp",
+                          replay_mode=True, backend="native", device="cuda")
+    out = {"equiv": _listen_run("policy (K1 at high)", p,
+                                (ek.equiv_power, "launches"), card)}
+    del p
+    torch.cuda.empty_cache()
+    fused = fk.FusedBeamformer(beamform.make_tables(cfg, "lerp",
+                                                    device="cuda"))
+    p = pipeline.Pipeline(cfg, "lerp", replay_mode=True, backend="native",
+                          device="cuda", power_fn=fused)
+    out["fused"] = _listen_run("power_fn=FusedBeamformer", p,
+                               (fk.fused_power, "launches"), card)
+    del p, fused
+    torch.cuda.empty_cache()
+    return out
+
+
+class _ChunkSink:
+    """An audio sink that keeps the size of every write and the first
+    few chunks."""
+
+    def __init__(self):
+        self.sizes, self.chunks = [], []
+
+    def write(self, samples):
+        self.sizes.append(samples.shape[0])
+        if len(self.chunks) < 4:
+            self.chunks.append(np.array(samples))
+
+    def close(self):
+        pass
+
+
+def phase_listen_live(card: str) -> int:
+    """Phase 7 (b, c): the live K1 heatmap stage and the live listening
+    stage side by side, steered by ``steer_cartesian_degree``; whole
+    frames reach the sink, and one received frame's audio matches the
+    plain beam; then 20 maps of the stage through ``viz.Front.multi_loop``
+    headless.  Returns K1's launches in the run."""
+    import queue
+
+    from zybo_rt_sampler_image_detection_torch.apps import pipeline
+    from zybo_rt_sampler_image_detection_torch.config import Config
+    from zybo_rt_sampler_image_detection_torch.ingest.streamer import (
+        NativeStreamer)
+    from zybo_rt_sampler_image_detection_torch.ops import equiv_kernel as ek
+    from zybo_rt_sampler_image_detection_torch.utils import viz
+
+    cfg = Config()
+    N = cfg.n_samples
+    tx, ty = 40, 20
+    sig = np.tile(_source_frame(cfg, tx, ty), (1, 8))
+    p = pipeline.Pipeline(cfg, "lerp", replay_mode=True, backend="native",
+                          power_backend="equiv_kernel", device="cuda")
+    sink = _ChunkSink()
+    emu = NativeStreamer(cfg, n_arrays=cfg.active_arrays)
+    maps = []
+    try:
+        emu.start(sig, rate=cfg.sample_rate)
+        zero_counts()
+        t0 = time.perf_counter()
+        p.connect(timeout=30.0)
+        p.start_heatmap()
+        miso = p.start_miso(sink=sink)
+        d = p.steer_cartesian_degree(LISTEN_AZ, LISTEN_EL)
+        while len(maps) < N_HEATMAPS or len(sink.sizes) < N_HEATMAPS:
+            maps.append(p.q_power.get(timeout=30.0)[0])
+            assert time.perf_counter() - t0 < 60.0, "live stages stalled"
+        elapsed = time.perf_counter() - t0
+        frame, seq = p.receiver.read_frame(fresh=True, last_seq=0,
+                                           timeout=10.0)
+    finally:
+        p.stop()
+        launches = ek.equiv_power.launches
+        emu.stop()
+    rep = p.report()
+    print(f"[live-listen] {len(maps)} heatmaps and {len(sink.sizes)} audio "
+          f"frames in {elapsed:.2f} s (connect and warm-up included); K1 "
+          f"launches {launches}; heatmap {json.dumps(rep['heatmap'])}; "
+          f"miso {json.dumps(rep['miso'])} [{card}]")
+    assert launches >= N_HEATMAPS, f"only {launches} K1 launches"
+    assert set(sink.sizes) == {N}, f"partial audio frames: {set(sink.sizes)}"
+    assert all(np.isfinite(c).all() for c in sink.chunks)
+    x = torch.from_numpy(frame).cuda()
+    got = miso.beam(frame)
+    abs_b, excess = _beam_errors(got, _plain_beams(p, x, d))
+    print(f"[live-listen] received frame seq={seq}, direction {d}: audio vs "
+          f"row {d} of steered_beams max abs err {abs_b:.3e} ({excess:.3f} "
+          f"of the gate)")
+    assert got.shape == (N,) and np.isfinite(got).all() and excess <= 1.0
+
+    # (c) the heatmap display, headless: 20 of the stage's maps
+    stack = np.stack(maps[:N_HEATMAPS])
+    assert np.isfinite(stack).all(), "non-finite heatmap"
+    q = queue.Queue()
+    for m in stack:
+        q.put(m)
+    ramp = np.linspace(0, 255, 640, dtype=np.float32)
+    cam = np.broadcast_to(ramp[None, :, None], (480, 640, 3)).astype(
+        np.uint8)
+    disp = viz.ArrayDisplay(keep=N_HEATMAPS)
+    t1 = time.perf_counter()
+    viz.Front(q, queue.Queue(), True, window=(720, 480),
+              capture=viz.ArrayCapture([cam]), display=disp).multi_loop(
+        max_frames=N_HEATMAPS)
+    show_ms = (time.perf_counter() - t1) * 1e3 / N_HEATMAPS
+    print(f"[display] {len(disp.frames)} frames through Front.multi_loop "
+          f"(720x480, cv2 {viz.imaging._HAS_CV2}): {show_ms:.2f} ms a frame "
+          f"on the host")
+    assert len(disp.frames) == N_HEATMAPS
+    assert all(f.shape == (480, 720, 3) and f.dtype == np.uint8
+               for f in disp.frames)
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
@@ -821,16 +1091,23 @@ def main() -> int:
     full = phase_fullrate()
     phase_policy()
     t5 = time.perf_counter()
+    listen = phase_listen_fullrate(card)
+    listen_live = phase_listen_live(card)
+    t6 = time.perf_counter()
     print(f"[time] build+K1 {t1 - t0:.1f} s, K5 {t2 - t1:.1f} s, K2-4 "
           f"{t3 - t2:.1f} s, live {t4 - t3:.1f} s, full rate+policy "
-          f"{t5 - t4:.1f} s")
+          f"{t5 - t4:.1f} s, listen {t6 - t5:.1f} s")
+    # launches: the main path's run (phase 5 live / phase 6 full rate);
+    # listen_launches: the combined full-rate stage's run (phase 7)
     kernels = [dict(name="equiv_power", route="cuda", source=KERNEL_SOURCE,
                     replaces=KERNEL_REPLACES, launches=live["equiv"],
-                    **main_k)]
+                    listen_launches=listen["equiv"]["launches"],
+                    listen_live_launches=listen_live, **main_k)]
     kernels.append(dict(
         name="time_power", route="cuda", source=TIME_SOURCE,
         replaces=TIME_REPLACES[0], also_replaces=TIME_REPLACES[1:],
-        launches=full["fused"]["launches"], **main_t))
+        launches=full["fused"]["launches"],
+        listen_launches=listen["fused"]["launches"], **main_t))
     kernels.append(dict(
         name="equiv_power_fd", route="cuda", source=FD_SOURCE,
         replaces=FD_REPLACES, launches=full["fd"]["launches"], **main_fd))

@@ -193,6 +193,7 @@ def test_demo_fullrate_cpu(capsys):
 
 
 def test_demo_fullrate_audio_not_ported():
+    """The listening stages are ported; their MVDR beam is not yet."""
     with pytest.raises(SystemExit, match="not yet ported"):
         demo.main(["fullrate", "--device", "cpu", "--preset", "tiny",
-                   "--audio", "null"])
+                   "--audio", "null", "--beam", "mvdr"])

@@ -219,7 +219,7 @@ def test_cuda_device_raises_without_gpu():
      "not yet ported"),
     (["mimo", "--replay", "--headless", "--algorithm", "mvdr"],
      "not yet ported"),
-    (["mimo", "--replay"], "--headless"),
+    (["miso", "--replay", "--fullrate", "--beam", "mvdr"], "not yet ported"),
 ])
 def test_demo_unported_paths_exit(argv, msg):
     with pytest.raises(SystemExit, match=msg):

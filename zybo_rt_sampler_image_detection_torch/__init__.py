@@ -2,10 +2,11 @@
 
 The PyTorch/CUDA port of ``zybo_rt_sampler_image_detection_tpu`` for an
 NVIDIA H100.  It mirrors that package's layout (``ops/ ingest/ apps/
-utils/``) and imports ``torch``, never ``jax``.  The slice ported so far
-is the MIMO heatmap: UDP packets -> ingest -> steering tables -> exact
+utils/``) and imports ``torch``, never ``jax``.  Ported so far: the MIMO
+heatmap (UDP packets -> ingest -> steering tables -> exact
 frequency-domain reformulation -> the fused equiv-power CUDA kernel ->
-heatmap queue.
+heatmap queue -> display) and delay-and-sum listening (the steered beam
+of every frame -> audio sink).
 
 Quick start::
 

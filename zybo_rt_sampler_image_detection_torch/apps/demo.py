@@ -1,17 +1,21 @@
-"""CLI entry point — the ``mimo`` heatmap demo, the full-rate proof and
-the packet emulator.
+"""CLI entry point — the ``mimo`` heatmap demo, the ``miso`` listening
+demo, the full-rate proof and the packet emulator.
 
 Examples::
 
     python -m zybo_rt_sampler_image_detection_torch.apps.demo emulate &
     python -m zybo_rt_sampler_image_detection_torch.apps.demo mimo --replay --headless --equiv-kernel --frames 20
-    python -m zybo_rt_sampler_image_detection_torch.apps.demo fullrate --seconds 10
+    python -m zybo_rt_sampler_image_detection_torch.apps.demo mimo --replay
+    python -m zybo_rt_sampler_image_detection_torch.apps.demo miso --replay --audio wav --seconds 2
+    python -m zybo_rt_sampler_image_detection_torch.apps.demo fullrate --seconds 10 --audio null
     python -m zybo_rt_sampler_image_detection_torch.apps.demo fullrate --device cpu --preset tiny --seconds 3
 
-Ported so far: ``mimo --headless``, ``fullrate`` (heatmaps only) and
-``emulate`` (parity with ``PC/demo.py`` mimo and ``udp/streamer.c``).  The
-cv2 viewer, ``miso``, ``fullrate --audio``, ``record``, ``sensorfusion``
-and ``web`` are later slices.
+Ported so far: ``mimo`` (the cv2 heatmap window, or stats when
+``--headless``), ``miso`` (live or ``--fullrate`` gapless listening),
+``fullrate`` (heatmaps, ``--audio`` heatmaps and the beam from one
+transfer, ``--audio-only``) and ``emulate`` (parity with ``PC/demo.py``
+mimo/miso and ``udp/streamer.c``).  The MVDR beam (``--beam mvdr``),
+``record``, ``sensorfusion`` and ``web`` are later slices.
 """
 
 from __future__ import annotations
@@ -66,7 +70,12 @@ def _resolve_arrays(args, cfg) -> int:
     return n
 
 
-def _make_pipeline(args, ring_frames: int = 64):
+_MVDR_NOT_PORTED = ("--beam mvdr (the streaming-MVDR beam) is not yet "
+                    "ported (ROADMAP queue 1, item 10)")
+
+
+def _make_pipeline(args, ring_frames: int = 64, audio_sink: str = "null",
+                   audio_path=None):
     from .pipeline import Pipeline
 
     cfg = {"default": Config, "reference": Config.reference,
@@ -79,21 +88,23 @@ def _make_pipeline(args, ring_frames: int = 64):
                          f"(ROADMAP queue 1, item 10)")
     return Pipeline(cfg, algorithm=args.algorithm, replay_mode=args.replay,
                     backend=args.backend, device=args.device,
-                    ring_frames=ring_frames,
+                    ring_frames=ring_frames, audio_sink=audio_sink,
+                    audio_path=audio_path,
                     power_backend=("equiv_kernel" if args.equiv_kernel
                                    else "freq_equiv" if args.equiv
                                    else "auto"))
 
 
 def cmd_mimo(args):
-    """Heatmap demo (``main.pyx:669-736``), headless: stats per heatmap."""
-    if not args.headless:
-        raise SystemExit("the cv2 viewer is not yet ported (ROADMAP queue 1, "
-                         "item 8); pass --headless")
+    """Heatmap demo (``main.pyx:669-736``): the heatmap window, or stats
+    per heatmap when headless."""
     p = _make_pipeline(args)
     try:
         p.connect()
         p.start_heatmap()
+        if not args.headless:
+            _viewer_loop(p, args.frames)
+            return
         n = 0
         while not args.frames or n < args.frames:
             power, seq = p.q_power.get(timeout=10.0)
@@ -105,6 +116,92 @@ def cmd_mimo(args):
         print("metrics:", p.report())
     finally:
         p.stop()
+
+
+def _viewer_loop(p, frames: int = 0, display=None) -> int:
+    """Show each heatmap of ``p.q_power`` (``visual.py:143-188``), blended
+    50/50 with the previous one, until ``frames`` maps (0 = until ESC).
+    ``display`` defaults to a cv2 window (cv2 imported at the first map),
+    where a click steers the listening beam (``visual.py:375-386``:
+    vertical, 1 - horizontal).  Returns the maps shown."""
+    from ..utils import imaging, viz
+
+    w, h = window = (720, 480)
+    if display is None:
+        def on_click(x, y):
+            print(f"steer -> grid cell {p.steer_click(y / h, 1.0 - x / w)}")
+
+        display = viz._CvDisplay("zybo-rt-torch mimo", on_click)
+    prev = None
+    n = 0
+    while not frames or n < frames:
+        power, seq = p.q_power.get(timeout=10.0)
+        heat, _ = viz.calculate_heatmap(power, threshold=0, window=window)
+        if prev is not None:
+            heat = imaging.add_weighted(prev, 0.5, heat, 0.5)
+        prev = heat
+        n += 1
+        if display.show(heat) == 27:          # ESC
+            break
+    return n
+
+
+def cmd_miso(args):
+    """Steered-listening demo (``main.pyx:824-864``): beam -> audio sink,
+    steered from the CLI.  ``--fullrate`` switches from the reference's
+    latest-frame sampling to the gapless batched stage (every frame
+    beamed, sample-count-exact output), which passes only with 0 underrun
+    frames."""
+    if args.beam == "mvdr":
+        raise SystemExit(_MVDR_NOT_PORTED)
+    sink = args.audio or ("auto" if not args.headless else "wav")
+    p = _make_pipeline(args, ring_frames=max(64, 4 * args.batch),
+                       audio_sink=sink, audio_path=args.out)
+    stage = None
+    try:
+        # inside the try: a connect/bring-up failure must still tear the
+        # pipeline down (leaked receiver/stage threads keep the process
+        # alive after the traceback)
+        if args.fullrate:
+            stage = p.make_miso_batched(batch=args.batch, beam=args.beam)
+            # steered before it runs: no batch beams toward direction 0
+            p.steer_cartesian_degree(args.azimuth, args.elevation)
+            stage.warmup()                  # build before packets flow
+            p.connect()
+            p.run_stage(stage)
+        else:
+            p.connect()
+            p.start_miso()
+            p.steer_cartesian_degree(args.azimuth, args.elevation)
+        t0 = time.time()
+        while time.time() - t0 < args.seconds:
+            time.sleep(0.2)
+        print("metrics:", p.report())
+    finally:
+        p.stop()
+    if sink == "wav":
+        print(f"beam audio written to {args.out}")
+    if stage is None:
+        return 0
+    elapsed = time.time() - t0
+    print(f"beamed {stage.processed} frames -> {stage.samples} samples "
+          f"({stage.samples / elapsed:.0f}/s vs line "
+          f"{p.cfg.sample_rate:.0f}/s); underrun frames = "
+          f"{stage.underrun_frames}")
+    _print_audio_latency(stage, args.batch)
+    print("GAPLESS" if stage.underrun_frames == 0 else "UNDERRUNS")
+    return 0 if stage.underrun_frames == 0 else 1
+
+
+def _print_audio_latency(stage, batch: int) -> None:
+    lat = stage.audio_latency()
+    if lat:
+        print(f"audio e2e latency (ring->sink) p50 = "
+              f"{lat['audio_e2e_p50_ms']} ms  p95 = "
+              f"{lat['audio_e2e_p95_ms']} ms at K={batch}")
+    if hasattr(stage.sink, "underflow_samples"):
+        print(f"mock playback underflow: {stage.sink.underflow_samples} "
+              f"samples ({stage.sink.underflow_ms:.1f} ms)")
 
 
 def cmd_emulate(args):
@@ -159,13 +256,14 @@ def cmd_fullrate(args):
     pkt/s for the reference config) -> native ingest -> batched device
     beamforming of EVERY frame; prints per-stage accounting.  The pass
     criterion is skipped == 0 (no frame overwritten unread) and ingest
-    gaps == 0 for the whole run.  The device program is built before the
-    first packet flows, and only the connected channel rows are sent to
-    the device (the tail rows are never written)."""
-    if args.audio:
-        raise SystemExit("fullrate --audio (the listening stages) is not "
-                         "yet ported (ROADMAP queue 1, item 9)")
+    gaps == 0 for the whole run, and with ``--audio`` 0 underrun frames
+    too.  The device program is built before the first packet flows, and
+    only the connected channel rows are sent to the device (the tail rows
+    are never written)."""
+    if args.audio and args.beam == "mvdr":
+        raise SystemExit(_MVDR_NOT_PORTED)
     from ..ingest.streamer import NativeStreamer
+    from ..utils import audio as audio_mod
 
     p = _make_pipeline(args, ring_frames=max(64, 4 * args.batch))
     # the emulator MUST use the pipeline's config (it honors --preset /
@@ -180,9 +278,26 @@ def cmd_fullrate(args):
           f"channels={n_ch}; device={p.device}; running "
           f"{args.seconds:.0f}s ...")
     # the maps are only counted: no display sink
-    stage = p.make_heatmap_batched(batch=args.batch,
-                                   sink=lambda powers, first_seq: None,
-                                   channels=n_ch, transfer=args.transfer)
+    count_only = lambda powers, first_seq: None      # noqa: E731
+    audio_stage = None
+    if args.audio:
+        a_sink = audio_mod.make_sink(args.audio, cfg.sample_rate,
+                                     args.audio_out)
+        if args.audio_only:
+            # pure listening proof: every frame beamed, gapless stream
+            stage = p.make_miso_batched(batch=args.batch, beam=args.beam,
+                                        channels=n_ch, sink=a_sink,
+                                        transfer=args.transfer)
+        else:
+            # heatmaps and the beam from one transfer per batch
+            stage = p.make_mimo_miso_batched(
+                batch=args.batch, beam=args.beam, channels=n_ch,
+                sink=a_sink, power_sink=count_only, transfer=args.transfer)
+        audio_stage = stage
+    else:
+        stage = p.make_heatmap_batched(batch=args.batch, sink=count_only,
+                                       channels=n_ch,
+                                       transfer=args.transfer)
     t0 = time.time()
     stage.warmup()                          # build before packets flow
     print(f"  device program ready in {time.time()-t0:.1f}s; "
@@ -199,15 +314,26 @@ def cmd_fullrate(args):
         while time.time() - t0 < args.seconds:
             time.sleep(1.0)
             rate = stage.processed / (time.time() - t0)
+            audio = ("" if audio_stage is None else
+                     f" underruns={audio_stage.underrun_frames}")
             print(f"  t={time.time()-t0:5.1f}s processed={stage.processed} "
                   f"({rate:.1f}/s) skipped={stage.skipped} "
-                  f"ingest_gaps={p.receiver.native_stats.gaps}")
+                  f"ingest_gaps={p.receiver.native_stats.gaps}{audio}")
     finally:
         sent = emu.stop()
         elapsed = time.time() - t0
         p.stop()
     rep = p.report()
     ok = stage.skipped == 0 and p.receiver.native_stats.gaps == 0
+    if audio_stage is not None:
+        ok = ok and audio_stage.underrun_frames == 0
+        print(f"\naudio: beamed {audio_stage.processed} frames -> "
+              f"{audio_stage.samples} samples "
+              f"({audio_stage.samples / elapsed:.0f}/s vs "
+              f"{cfg.sample_rate:.0f}/s), underrun frames = "
+              f"{audio_stage.underrun_frames} ("
+              f"{'GAPLESS' if audio_stage.underrun_frames == 0 else 'UNDERRUNS'})")
+        _print_audio_latency(audio_stage, args.batch)
     print(f"\nemulator sent {sent} packets "
           f"({sent / elapsed:.0f}/s vs line {cfg.sample_rate:.0f}/s)")
     print(f"processed {stage.processed} frames in {elapsed:.1f}s "
@@ -230,6 +356,28 @@ def main(argv=None):
     p = sub.add_parser("mimo", help="steered-power heatmap demo")
     _add_common(p)
     p.set_defaults(fn=cmd_mimo)
+
+    p = sub.add_parser("miso", help="steered listening demo")
+    _add_common(p)
+    p.add_argument("--azimuth", type=float, default=0.0)
+    p.add_argument("--elevation", type=float, default=0.0)
+    p.add_argument("--seconds", type=float, default=3.0)
+    p.add_argument("--audio", default=None,
+                   choices=["wav", "null", "sounddevice", "auto", "mock"],
+                   help="audio sink (default: auto = live playback when "
+                        "interactive, wav when --headless; mock = "
+                        "deadline-accounting playback stand-in)")
+    p.add_argument("--out", default="miso.wav")
+    p.add_argument("--fullrate", action="store_true",
+                   help="gapless batched listening: every frame beamed, "
+                        "sample-count-exact stream (vs the reference's "
+                        "latest-frame sampling)")
+    p.add_argument("--beam", default="time", choices=["time", "mvdr"],
+                   help="beam backend: delay-and-sum (mvdr is not yet "
+                        "ported)")
+    p.add_argument("--batch", type=int, default=16,
+                   help="frames per device launch in --fullrate mode")
+    p.set_defaults(fn=cmd_miso)
 
     p = sub.add_parser("emulate", help="software FPGA packet streamer")
     p.add_argument("--npy", default=None)
@@ -254,7 +402,16 @@ def main(argv=None):
     p.add_argument("--arrays", type=int, default=None,
                    help="default: the config's active_arrays")
     p.add_argument("--audio", default=None,
-                   help="the listening stage (not yet ported)")
+                   choices=["null", "wav", "mock"],
+                   help="also beam every frame into this audio sink, from "
+                        "the same transfer as the heatmaps (pass then also "
+                        "needs 0 underrun frames)")
+    p.add_argument("--audio-only", action="store_true",
+                   help="with --audio: listening only, no heatmaps")
+    p.add_argument("--audio-out", default="fullrate_miso.wav")
+    p.add_argument("--beam", default="time", choices=["time", "mvdr"],
+                   help="audio beam backend: delay-and-sum (mvdr is not "
+                        "yet ported)")
     p.add_argument("--transfer", default="f32", choices=["f32", "f16"],
                    help="host->device sample dtype: f16 halves the "
                         "traffic at ~1e-3 relative error (display-grade "

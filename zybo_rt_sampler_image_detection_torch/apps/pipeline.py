@@ -1,16 +1,27 @@
-"""Single-process real-time pipeline: the MIMO heatmap path.
+"""Single-process real-time pipeline: imaging and listening.
 
 The reference spreads one dataflow across five+ processes (fork'd C
-receiver, multiprocessing producers, viewer — ``main.pyx:669-736``,
-SURVEY.md §3.2).  Here each stage is a thread around a device program,
-sharing queues with the reference's drop-oldest backpressure
-(``main.pyx:639-650``).
+receiver, fork'd MISO child, multiprocessing producers, viewer —
+``main.pyx:669-736``, SURVEY.md §3.2).  Here each stage is a thread around
+a device program, sharing queues with the reference's drop-oldest
+backpressure (``main.pyx:639-650``).
 
-Ported so far: the backend policy that picks the heatmap device program,
-:class:`HeatmapProducer` — fresh frame -> steered-power map -> ``q_power``
-(the ``_loop_mimo_*`` producers, ``main.pyx:172-380``) — and the full-rate
-:class:`BatchedHeatmapProducer`, which beamforms every frame in K-frame
-device batches.  Listening, camera and tracker stages are later slices
+Stages ported so far:
+
+* :class:`HeatmapProducer` — fresh frame -> steered-power map -> q_power
+  (the ``_loop_mimo_*`` producers, ``main.pyx:172-380``), through the
+  backend policy that picks the heatmap device program;
+* :class:`BatchedHeatmapProducer` — every frame, in K-frame device batches;
+* :class:`MisoProducer` — fresh frame -> steered beam -> gain -> audio
+  sink, steerable live (``api.c:491-543`` miso_loop);
+* :class:`BatchedMisoProducer` — gapless listening: every frame beamed;
+* :class:`BatchedMimoMisoProducer` — heatmaps and the beam from one
+  transfer per batch (``_loop_mimo_and_miso_*``, ``main.pyx:279-380``).
+
+Steering: :meth:`Pipeline.steer_cartesian_degree` /
+:meth:`Pipeline.steer_click` mirror ``main.pyx:498-528``; the direction
+indexes the tables on the device, so a steer needs no host sync and no
+rebuild.  The MVDR beam, camera and tracker stages are later slices
 (ROADMAP).
 """
 
@@ -28,6 +39,7 @@ import torch.nn.functional as F_
 from ..config import Config
 from ..ingest.receiver import Receiver
 from ..ops import beamform
+from ..utils import audio as audio_mod
 from ..utils.metrics import PipelineMetrics
 
 # Byte cap for the equiv paths' response planes, reckoned as the JAX
@@ -236,11 +248,14 @@ class BatchedStage(Stage):
     buffer is refilled only after its last copy completed, and a device
     buffer only after the launch that read it.
 
-    Subclasses implement ``launch(frames_dev) -> device tensor`` (must not
-    block) and ``consume(host_array, first_seq, skipped)``.  Accounting:
-    ``processed`` frames through the device, ``skipped`` frames the ring
-    overwrote unread (0 = full rate sustained), ``metric`` per-batch
-    latency.
+    Subclasses implement ``launch(frames_dev) -> device tensor`` or a
+    tuple of them (must not block) and ``consume(host_output, first_seq,
+    skipped, stamps=None)``, which gets a NumPy array or a tuple of them
+    in the same shape.  A subclass that sets ``want_stamps`` gets each
+    batch's per-frame ring publish times (``time.perf_counter`` seconds)
+    as ``stamps``.  Accounting: ``processed`` frames through the device,
+    ``skipped`` frames the ring overwrote unread (0 = full rate
+    sustained), ``metric`` per-batch latency.
     """
 
     def __init__(self, name: str, receiver: Receiver,
@@ -267,6 +282,9 @@ class BatchedStage(Stage):
         self._slots = None
         self._next_slot = 0
         self._copy_stream = None
+        # subclasses that need per-frame ring publish times (the audio
+        # e2e latency contract) set this before start()
+        self.want_stamps = False
 
     def _slot_for(self, shape) -> _Slot:
         if self._slots is None or tuple(self._slots[0].host.shape) != shape:
@@ -280,13 +298,15 @@ class BatchedStage(Stage):
     def launch(self, frames_dev):
         raise NotImplementedError
 
-    def consume(self, out: np.ndarray, first_seq: int,
-                skipped: int) -> None:
+    def consume(self, out, first_seq: int, skipped: int,
+                stamps=None) -> None:
         raise NotImplementedError
 
     def _dispatch(self, batch: np.ndarray):
         """Copy ``batch`` to the device and launch on it; returns the
-        (host output, done event) pair :meth:`_finish` waits on."""
+        (host output, done event) pair :meth:`_finish` waits on.  Each
+        tensor ``launch`` returns gets its own pinned host tensor; one
+        event marks all of their copies done."""
         x = torch.from_numpy(batch)
         if self.device.type != "cuda":
             out = self.launch(x.to(self.device, self.transfer_dtype))
@@ -304,11 +324,14 @@ class BatchedStage(Stage):
         out = self.launch(slot.dev)
         slot.read.record(compute)
         slot.used = True
-        host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
-        host.copy_(out, non_blocking=True)
+        outs = out if isinstance(out, tuple) else (out,)
+        hosts = tuple(torch.empty(o.shape, dtype=o.dtype, pin_memory=True)
+                      for o in outs)
+        for h, o in zip(hosts, outs):
+            h.copy_(o, non_blocking=True)
         done = torch.cuda.Event(blocking=True)
         done.record(compute)
-        return host, done
+        return (hosts if isinstance(out, tuple) else hosts[0]), done
 
     def warmup(self):
         """Build the kernels and first-call state before any packets flow
@@ -321,7 +344,7 @@ class BatchedStage(Stage):
             done.synchronize()
 
     def _finish(self, pending):
-        host, done, first, skipped, t0 = pending
+        host, done, first, skipped, t0, stamps = pending
         if done is not None:
             done.synchronize()                   # batch i-1 is on the host
         self.metric.tick(time.perf_counter() - t0)
@@ -329,7 +352,9 @@ class BatchedStage(Stage):
             self.skipped += skipped
             self.metric.drop(skipped)
         self.processed += self.batch
-        self.consume(host.numpy(), first, skipped)
+        out = (tuple(np.asarray(h) for h in host) if isinstance(host, tuple)
+               else np.asarray(host))
+        self.consume(out, first, skipped, stamps)
 
     def run(self):
         # stream-start anchor: consume everything the ring still holds,
@@ -338,20 +363,22 @@ class BatchedStage(Stage):
         pending = None
         while not self.stop_event.is_set():
             try:
-                batch, first, skipped = self.receiver.read_batch(
+                res = self.receiver.read_batch(
                     self.batch, next_seq, timeout=0.5,
-                    channels=self.channels)
+                    channels=self.channels, with_stamps=self.want_stamps)
             except TimeoutError:
                 if pending is not None:
                     self._finish(pending)
                     pending = None
                 continue
+            batch, first, skipped = res[:3]
+            stamps = res[3] if self.want_stamps else None
             next_seq = first + self.batch
             t0 = time.perf_counter()
             host, done = self._dispatch(batch)   # copy + launch, no wait
             if pending is not None:
                 self._finish(pending)           # batch i-1, in order
-            pending = (host, done, first, skipped, t0)
+            pending = (host, done, first, skipped, t0, stamps)
         if pending is not None:
             self._finish(pending)
 
@@ -403,13 +430,228 @@ class BatchedHeatmapProducer(BatchedStage):
     def launch(self, frames_dev):
         return self.power_fn(frames_dev)
 
-    def consume(self, powers, first_seq: int, skipped: int):
+    def consume(self, powers, first_seq: int, skipped: int, stamps=None):
         self.sink(powers, first_seq)
 
 
+def _check_beam(beam: str) -> None:
+    """The listening stages' beam backends: delay-and-sum only so far."""
+    if beam == "mvdr":
+        raise ValueError("beam='mvdr' (the streaming-MVDR beam) is not yet "
+                         "ported (ROADMAP queue 1, item 10)")
+    if beam != "time":
+        raise ValueError(f"unknown beam backend {beam!r}")
+
+
+class MisoProducer(Stage):
+    """Live steered listening (``miso_loop``, ``api.c:491-543``): the
+    newest frame -> its beam toward the steered direction -> the
+    reference's gain chain -> the audio sink, one frame at a time
+    (``get_data`` semantics: frames that arrive meanwhile are skipped)."""
+
+    def __init__(self, receiver: Receiver, tables, cfg: Config,
+                 sink: audio_mod.AudioSink, metrics: PipelineMetrics):
+        super().__init__("miso", metrics)
+        self.receiver = receiver
+        self.tables = tables
+        self.cfg = cfg
+        self.sink = sink
+        self._direction = 0
+        self._lock = threading.Lock()
+
+    def steer(self, direction: int):
+        """``api.c:576-581``: mutate the steer offset live."""
+        with self._lock:
+            self._direction = int(direction)
+
+    def beam(self, frame: np.ndarray) -> np.ndarray:
+        """One (n_channels, N) frame's audio: its beam toward the steered
+        direction, scaled by the gain chain (``api.c:517-522``)."""
+        with self._lock:
+            d = self._direction
+        x = torch.from_numpy(frame).to(self.tables.device)
+        beam = beamform.miso_beam(x, self.tables, d).cpu().numpy()
+        out = audio_mod.miso_gain(beam, self.tables.n_mics,
+                                  self.cfg.mic_gain,
+                                  self.cfg.norm_factor_sound)
+        return out.astype(np.float32)
+
+    def run(self):
+        seq = 0
+        while not self.stop_event.is_set():
+            try:
+                frame, seq = self.receiver.read_frame(fresh=True,
+                                                      last_seq=seq,
+                                                      timeout=1.0)
+            except TimeoutError:
+                continue
+            t0 = time.perf_counter()
+            self.sink.write(self.beam(frame))     # waits for the device
+            self.metric.tick(time.perf_counter() - t0)
+
+
+class AudioLeg:
+    """Gapless-audio accounting of the full-rate listening stages:
+    zero-fills frames lost to ring overwrites so the stream stays
+    sample-count exact, counts samples/underruns, and measures the
+    packet->sink e2e latency contract from the ring publish stamps (the
+    reference's PortAudio callback ran at ms scale, ``api.c:268-282``)."""
+
+    def __init__(self, sink: audio_mod.AudioSink, post_fn,
+                 n_samples: int):
+        self.sink = sink
+        self.post_fn = post_fn
+        self.n_samples = n_samples
+        self.underrun_frames = 0
+        self.samples = 0
+        self.lat_oldest_ms: list = []
+        self.lat_newest_ms: list = []
+
+    def write(self, beams: np.ndarray, skipped: int, stamps=None):
+        if skipped:
+            # keep the stream time-aligned: silence for the lost frames
+            self.underrun_frames += skipped
+            gap = np.zeros(skipped * self.n_samples, np.float32)
+            self.sink.write(gap)
+            self.samples += gap.size
+        audio = self.post_fn(beams).reshape(-1).astype(np.float32)
+        self.sink.write(audio)
+        self.samples += audio.size
+        if stamps is not None:
+            s = stamps[stamps > 0]
+            if s.size:
+                now = time.perf_counter()
+                self.lat_oldest_ms.append((now - float(s.min())) * 1e3)
+                self.lat_newest_ms.append((now - float(s.max())) * 1e3)
+
+    def latency(self) -> dict:
+        """p50/p95 of the per-batch oldest-frame age at sink write — the
+        measured end-to-end playback lag (packet ring -> audio sink)."""
+        if not self.lat_oldest_ms:
+            return {}
+        old = np.asarray(self.lat_oldest_ms)
+        new = np.asarray(self.lat_newest_ms)
+        return {
+            "audio_e2e_p50_ms": round(float(np.percentile(old, 50)), 2),
+            "audio_e2e_p95_ms": round(float(np.percentile(old, 95)), 2),
+            "audio_e2e_newest_p50_ms":
+                round(float(np.percentile(new, 50)), 2),
+        }
+
+
+class BatchedMisoProducer(BatchedStage):
+    """Full-rate (gapless) steered LISTENING: every frame beamed, in
+    counter-contiguous batches.
+
+    The reference's whole point of MISO is *continuous* playback — its
+    miso_loop feeds a PortAudio ring at line rate (``api.c:491-543``).
+    :class:`MisoProducer` keeps the reference's get_data semantics
+    (latest-frame snapshots, ``api.c:830-859``), which can skip frames in
+    the audio stream; this stage instead drains the frame ring in
+    counter-contiguous K-frame batches, runs ONE batched ``(K, M, N) ->
+    (K, N)`` beam program, and writes the concatenated samples to the
+    sink — a gapless 48,828 samples/s stream.  Frames the ring overwrote
+    unread are zero-filled (and counted in ``underrun_frames``) so the
+    output stays sample-count exact.
+
+    ``beam_fn(frames_dev (K, M, N), direction int) -> (K, N)``: the
+    delay-and-sum default comes from :meth:`Pipeline.make_miso_batched`.
+    Steering (:meth:`steer`) is live (``api.c:576-581``).
+
+    Accounting: ``processed`` frames beamed, ``underrun_frames`` frames
+    lost to ring overwrites (0 = gapless), ``samples`` written to the
+    sink, ``metric`` per-batch latency, :meth:`audio_latency` the e2e
+    playback lag from the ring publish stamps.
+    """
+
+    def __init__(self, receiver: Receiver, sink: audio_mod.AudioSink,
+                 metrics: PipelineMetrics, batch: int, beam_fn, post_fn,
+                 n_samples: int, channels: int = 0,
+                 name: str = "miso_batched", transfer: str = "f32",
+                 device="cuda"):
+        super().__init__(name, receiver, metrics, batch, channels, transfer,
+                         device=device)
+        self.sink = sink
+        self.beam_fn = beam_fn
+        self.post_fn = post_fn
+        self.n_samples = n_samples
+        self._direction = 0
+        self._lock = threading.Lock()
+        # audio e2e latency contract: per-batch age (at sink.write) of
+        # the batch's OLDEST and NEWEST frames, measured from their ring
+        # publish stamps (AudioLeg).  The oldest-frame age is the
+        # stream's playback lag — what a listener actually experiences.
+        self.want_stamps = True
+        self._audio = AudioLeg(sink, post_fn, n_samples)
+
+    @property
+    def underrun_frames(self) -> int:
+        return self._audio.underrun_frames
+
+    @property
+    def samples(self) -> int:
+        return self._audio.samples
+
+    def steer(self, direction: int):
+        with self._lock:
+            self._direction = int(direction)
+
+    def _steered(self) -> int:
+        with self._lock:
+            return self._direction
+
+    def launch(self, frames_dev):
+        return self.beam_fn(frames_dev, self._steered())
+
+    def audio_latency(self) -> dict:
+        return self._audio.latency()
+
+    def consume(self, beams, first_seq: int, skipped: int, stamps=None):
+        self._audio.write(beams, skipped, stamps)
+
+
+class BatchedMimoMisoProducer(BatchedMisoProducer):
+    """Combined full-rate MIMO + MISO: ONE host->device transfer per batch
+    serves BOTH the heatmap and the listening output.
+
+    The reference runs imaging and listening off the same shared-memory
+    frames (``_loop_mimo_and_miso_*``, ``main.pyx:279-380``); here the
+    shared resource is the host->device copy — two separate batched
+    stages would each transfer the same frames — so this stage transfers
+    once and runs ``process_fn(frames_dev, direction) -> (powers (K, X,
+    Y), beams (K, N))`` on the one device batch.  Heatmaps go to
+    ``power_sink`` (default: newest-of-batch to ``q_power``); audio
+    follows the gapless zero-fill contract of :class:`BatchedMisoProducer`.
+    """
+
+    def __init__(self, receiver: Receiver, sink: audio_mod.AudioSink,
+                 metrics: PipelineMetrics, batch: int, process_fn, post_fn,
+                 n_samples: int, q_power: queue.Queue, power_sink=None,
+                 channels: int = 0, transfer: str = "f32", device="cuda"):
+        super().__init__(receiver, sink, metrics, batch, beam_fn=None,
+                         post_fn=post_fn, n_samples=n_samples,
+                         channels=channels, name="mimo_miso_batched",
+                         transfer=transfer, device=device)
+        self.process_fn = process_fn
+        self.q_power = q_power
+        self.power_sink = power_sink or self._default_power_sink
+
+    def _default_power_sink(self, powers: np.ndarray, first_seq: int):
+        put_drop_oldest(self.q_power,
+                        (powers[-1], first_seq + len(powers) - 1))
+
+    def launch(self, frames_dev):
+        return self.process_fn(frames_dev, self._steered())
+
+    def consume(self, out, first_seq: int, skipped: int, stamps=None):
+        powers, beams = out
+        self.power_sink(powers, first_seq)
+        self._audio.write(beams, skipped, stamps)
+
+
 class Pipeline:
-    """Owns the receiver + stages; the ``mimo()`` orchestration layer
-    (``main.pyx:669-736``) as one object.
+    """Owns the receiver + stages; the ``mimo()``/``miso()`` orchestration
+    layer (``main.pyx:669-736,824-864``) as one object.
 
     ``device`` is explicit (``"cuda"`` by default); asking for CUDA with no
     GPU present raises.  ``power_backend``: ``"auto"`` (the policy of
@@ -419,12 +661,15 @@ class Pipeline:
     ``power_fn``: a callable of the heatmap stages' own, e.g.
     ``ops.fused_kernel.FusedBeamformer(tables)``, exclusive with a
     ``power_backend`` other than ``"auto"``.  ``ring_frames``: the
-    receiver's frame ring, which bounds the full-rate stage's batch."""
+    receiver's frame ring, which bounds the full-rate stage's batch.
+    ``audio_sink``/``audio_path``: the listening stages' default sink
+    (:func:`utils.audio.make_sink` kind and WAV path)."""
 
     def __init__(self, cfg: Optional[Config] = None, algorithm: str = "lerp",
                  replay_mode: bool = False, backend: str = "auto",
                  power_backend: str = "auto", device="cuda",
-                 power_fn=None, ring_frames: int = 64):
+                 power_fn=None, ring_frames: int = 64,
+                 audio_sink: str = "null", audio_path: Optional[str] = None):
         self.cfg = cfg or Config()
         self.device = beamform.resolve_device(device)
         beamform.set_fp32_matmul()
@@ -455,6 +700,11 @@ class Pipeline:
         self.q_power: queue.Queue = queue.Queue(maxsize=2)
         self.stages = []
         self._power_fn = power_fn
+        self._audio_sink_kind = audio_sink
+        self._audio_path = audio_path
+        # the listening stage that steering reaches (and whose sink
+        # stop() closes)
+        self._miso = None
 
     # -- bring-up -------------------------------------------------------------
 
@@ -499,6 +749,114 @@ class Pipeline:
             s.warmup()
         return self.run_stage(s)
 
+    # -- listening ---------------------------------------------------------------
+
+    def _sink(self, sink=None) -> audio_mod.AudioSink:
+        if sink is not None:
+            return sink
+        return audio_mod.make_sink(self._audio_sink_kind,
+                                   self.cfg.sample_rate, self._audio_path)
+
+    def _gain(self, beams: np.ndarray) -> np.ndarray:
+        """The reference's gain chain on raw beams (``api.c:517-522``)."""
+        return audio_mod.miso_gain(beams, self.tables.n_mics,
+                                   self.cfg.mic_gain,
+                                   self.cfg.norm_factor_sound)
+
+    def start_miso(self, warmup: bool = True,
+                   sink: Optional[audio_mod.AudioSink] = None):
+        """Live listening: the newest frame's beam to the audio sink."""
+        s = MisoProducer(self.receiver, self.tables, self.cfg,
+                         self._sink(sink), self.metrics)
+        if warmup:
+            s.beam(np.zeros((self.cfg.n_microphones, self.cfg.n_samples),
+                            np.float32))
+        self._miso = s
+        self.stages.append(s)
+        s.start()
+        return s
+
+    def make_miso_batched(self, batch: int = 16, beam: str = "time",
+                          channels: int = 0,
+                          sink: Optional[audio_mod.AudioSink] = None,
+                          transfer: str = "f32"):
+        """Build (don't start) the full-rate listening stage: batched
+        delay-and-sum (:func:`beamform.miso_beam`) through this pipeline's
+        tables, with the reference's gain chain (``api.c:517-522``)."""
+        _check_beam(beam)
+        tables, n_full = self.tables, self.cfg.n_microphones
+
+        def beam_fn(frames, d):
+            return beamform.miso_beam(_pad_full(frames, n_full), tables, d)
+
+        s = BatchedMisoProducer(self.receiver, self._sink(sink),
+                                self.metrics, batch, beam_fn, self._gain,
+                                self.cfg.n_samples, channels=channels,
+                                transfer=transfer, device=self.device)
+        self._miso = s
+        return s
+
+    def make_mimo_miso_batched(self, batch: int = 16, beam: str = "time",
+                               channels: int = 0,
+                               sink: Optional[audio_mod.AudioSink] = None,
+                               power_sink=None, transfer: str = "f32"):
+        """Build (don't start) the combined full-rate imaging+listening
+        stage: one transfer per batch, padded once on the device, feeding
+        the heatmap program and the beam.  The heatmap half is the
+        pipeline's ``power_fn`` when it has one (enabling audio must not
+        switch the imaging semantics), else the policy's program
+        (:func:`_batched_power_program`)."""
+        _check_beam(beam)
+        tables, n_full = self.tables, self.cfg.n_microphones
+        power_fn = (self._power_fn if self._power_fn is not None
+                    else _batched_power_program(tables, n_full))
+
+        def process_fn(frames, d):
+            frames = _pad_full(frames, n_full)
+            return power_fn(frames), beamform.miso_beam(frames, tables, d)
+
+        s = BatchedMimoMisoProducer(self.receiver, self._sink(sink),
+                                    self.metrics, batch, process_fn,
+                                    self._gain, self.cfg.n_samples,
+                                    self.q_power, power_sink=power_sink,
+                                    channels=channels, transfer=transfer,
+                                    device=self.device)
+        self._miso = s
+        return s
+
+    def start_miso_batched(self, batch: int = 16, beam: str = "time",
+                           warmup: bool = True, channels: int = 0,
+                           sink: Optional[audio_mod.AudioSink] = None):
+        """Full-rate variant of :meth:`start_miso`: gapless line-rate
+        listening."""
+        s = self.make_miso_batched(batch=batch, beam=beam,
+                                   channels=channels, sink=sink)
+        if warmup:
+            s.warmup()
+        return self.run_stage(s)
+
+    # -- steering (main.pyx:498-528 semantics) ---------------------------------
+
+    def steer_cartesian_degree(self, azimuth: float, elevation: float) -> int:
+        if not (-90 <= azimuth <= 90 and -90 <= elevation <= 90):
+            raise ValueError(f"steering angles out of [-90, 90]: "
+                             f"({azimuth}, {elevation})")
+        d = beamform.steer_index(self.cfg, azimuth, elevation)
+        if self._miso is not None:
+            self._miso.steer(d)
+        return d
+
+    def steer_click(self, horizontal01: float, vertical01: float) -> int:
+        """Normalized click coords -> grid cell (``stear_miso_beam``)."""
+        az = int(np.clip(horizontal01 * self.cfg.max_res_x, 0,
+                         self.cfg.max_res_x - 1))
+        el = int(np.clip(vertical01 * self.cfg.max_res_y, 0,
+                         self.cfg.max_res_y - 1))
+        d = az * self.cfg.max_res_y + el
+        if self._miso is not None:
+            self._miso.steer(d)
+        return d
+
     # -- teardown --------------------------------------------------------------
 
     def stop(self):
@@ -507,16 +865,28 @@ class Pipeline:
         for s in self.stages:
             s.join(timeout=2.0)
         self.receiver.disconnect()
+        if self._miso is not None:
+            self._miso.sink.close()
 
     def report(self):
         rep = self.metrics.report()
         stats = self.receiver.native_stats
         rep["ingest"] = {"packets": stats.packets, "frames": stats.frames,
                          "gaps": stats.gaps}
-        # full-rate stage accounting: frames through the device and frames
-        # the ring overwrote unread
+        # full-rate stage accounting (frames through the device, frames
+        # the ring overwrote unread, zero-filled audio frames) and the
+        # audio sink's late-write and playback-underflow counters
         for s in self.stages:
-            if hasattr(s, "skipped"):
-                rep.setdefault(s.name, {}).update(processed=s.processed,
-                                                  skipped=s.skipped)
+            counts = {k: getattr(s, k) for k in
+                      ("processed", "skipped", "underrun_frames")
+                      if hasattr(s, k)}
+            if hasattr(s, "audio_latency"):
+                counts.update(s.audio_latency())
+            sink = getattr(s, "sink", None)
+            if sink is not None and hasattr(sink, "_dropped"):
+                counts["sink_dropped_writes"] = sink._dropped
+            if sink is not None and hasattr(sink, "underflow_samples"):
+                counts["sink_underflow_samples"] = sink.underflow_samples
+            if counts:
+                rep.setdefault(s.name, {}).update(counts)
         return rep

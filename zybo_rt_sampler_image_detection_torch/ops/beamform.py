@@ -13,7 +13,8 @@ loops cut a handful of products involving ``s[m, 0..2]``).  This module is
 the ground truth of the port: :func:`steered_power` runs that product
 with ``torch.matmul`` at true FP32 (TF32 off) or in float64 for the
 oracle gates, and the fused kernel in :mod:`.equiv_kernel` is tested
-against it.
+against it.  The MISO path (:func:`miso_beam`, :func:`miso_beams_multi`)
+beams toward single directions with the same tables.
 
 Ported from ``zybo_rt_sampler_image_detection_tpu/ops/beamform.py``: the
 table builders are the same NumPy code (byte-identical tables), the
@@ -446,3 +447,110 @@ def steered_power(signals, t: SteeringTables) -> torch.Tensor:
     """The MIMO heatmap: ``image[x, y] = sum((beam/n)**2)/N`` exactly as
     ``pad_and_sum.c:122-131``.  (B, X, Y) or (X, Y)."""
     return steered_beams(signals, t, mean_power=True)
+
+
+def _pick(x: torch.Tensor, dim: int, directions) -> torch.Tensor:
+    """Rows ``directions`` of ``x`` along ``dim`` (a new axis there, K
+    long): a Python int or sequence, or an integer tensor on any device.
+    An int is a view; ``index_select`` keeps a device index on the device
+    (no host sync)."""
+    if isinstance(directions, (int, np.integer)):
+        return x.narrow(dim, int(directions), 1)
+    if isinstance(directions, torch.Tensor):
+        idx = directions.to(x.device, torch.int64).reshape(-1)
+    else:
+        idx = torch.as_tensor(np.asarray(directions, np.int64).reshape(-1),
+                              device=x.device)
+    return x.index_select(dim, idx)
+
+
+def _beams_at(signals, t: SteeringTables, directions) -> torch.Tensor:
+    """Single-direction beams (B, K, N) for ``directions`` (K of them):
+    the tap product ``G = W[d] · s`` (B, K, T, N), its T shifted copies
+    summed by one gather over a zero-padded G, then the boundary
+    corrections.  Precision as :func:`steered_beams`: float64 for float64
+    tables, else true FP32 (bf16 tables: bf16-rounded operands, FP32
+    sums); the corrections from the unrounded signal, in FP32 or
+    float64."""
+    set_fp32_matmul()
+    signals = torch.as_tensor(signals, device=t.device)
+    N = t.n_samples
+    acc = _acc_dtype(t)
+    s = signals[:, t.adaptive, :]                                   # (B,M,N)
+    Wd = _pick(t.W, 0, directions).to(acc)                          # (K,T,M)
+    # one (T, M) x (M, N) product per (direction, frame): the same sums
+    # in the same order whatever K and B are
+    G = torch.matmul(Wd[:, None], s.to(t.W.dtype).to(acc)[None])    # (K,B,T,N)
+    T = G.shape[2]
+    # tap t adds G[..., t, n - tau_t] at output n (zero outside the
+    # frame): pad G by the largest shift on each side, gather
+    tau = t.tau_min + torch.arange(T, device=t.device)
+    lo, hi = max(0, t.tau_min + T - 1), max(0, -t.tau_min)
+    idx = torch.arange(N, device=t.device)[None, :] - tau[:, None] + lo
+    Gz = torch.nn.functional.pad(G, (lo, hi))
+    idx = idx.expand(*G.shape[:2], T, N)
+    beam = torch.gather(Gz, 3, idx).sum(dim=2)                      # (K,B,N)
+    if t.Wc is not None:
+        Wcd = _pick(t.Wc, 1, directions).to(acc)                    # (J,K,Tc,M)
+        J, K, Tc, M = Wcd.shape
+        Wcd = Wcd.permute(1, 2, 0, 3).reshape(K, 1, Tc, J * M)
+        sj = torch.stack([s[:, :, j] for j in t.corr_js], dim=1)    # (B,J,M)
+        corr = torch.matmul(Wcd, sj.to(acc).reshape(1, -1, J * M, 1))
+        beam[..., :Tc] -= corr[..., 0]                              # (K,B,Tc)
+    return beam.permute(1, 0, 2)
+
+
+def miso_beam(signals, t: SteeringTables, direction) -> torch.Tensor:
+    """Single-direction beam (the MISO path, ``pad_and_sum.c:54-70`` /
+    ``lerp_and_sum.c:67-92``): raw mic sum, NOT divided by n (the caller
+    applies gain/normalization, as ``api.c:517-522`` does).
+
+    ``signals``: (B, n_channels, N) or (n_channels, N), full channel
+    axis.  ``direction``: flat grid index d = x * res_y + y, an int or a
+    0-d integer tensor (indexed on the device: steering changes cost no
+    host sync).  Returns (B, N) or (N,)."""
+    signals = torch.as_tensor(signals, device=t.device)
+    squeeze = signals.ndim == 2
+    beam = _beams_at(signals[None] if squeeze else signals, t, direction)
+    beam = beam[:, 0]
+    return beam[0] if squeeze else beam
+
+
+def make_miso_tables(cfg: Config, azimuth_deg: float, elevation_deg: float,
+                     device="cuda") -> SteeringTables:
+    """Single-direction pad tables from the angle delay model — parity with
+    ``load_coefficients_pad2``/``miso_pad2`` (``pad_and_sum.c:77-92,153``),
+    which steers with a dedicated per-mic whole-sample table computed by
+    ``calculate_delay_miso`` (``directions.pyx:159-187``).  Use with
+    ``miso_beam(signals, tables, 0)``."""
+    delays = geometry.calculate_delay_miso(cfg, azimuth_deg, elevation_deg)
+    active, _ = geometry.active_microphones(cfg)
+    whole = delays[active].reshape(1, 1, -1)
+    one = cfg.replace(max_res_x=1, max_res_y=1)
+    return make_pad_tables(one, whole, device=device)
+
+
+def miso_beams_multi(signals, t: SteeringTables, directions) -> torch.Tensor:
+    """Beams for several steering directions at once: (B, K, N) for
+    batched signals, (K, N) for one frame — one product for all K
+    directions, not K calls."""
+    signals = torch.as_tensor(signals, device=t.device)
+    squeeze = signals.ndim == 2
+    beams = _beams_at(signals[None] if squeeze else signals, t, directions)
+    return beams[0] if squeeze else beams
+
+
+def steer_index(cfg: Config, azimuth_deg: float, elevation_deg: float) -> int:
+    """Map (azimuth, elevation) degrees in [-90, 90] to a flat grid index.
+
+    Follows ``main.pyx:498-515`` (``steer_cartesian_degree``) for the
+    degree->cell quantization; the cell->flat-offset mapping here is the
+    geometrically consistent ``x * res_y + y`` (the reference computes a
+    byte offset that disagrees with its own table layout — a known quirk we
+    do not reproduce; see SURVEY.md §3.3).
+    """
+    az = int((azimuth_deg + 90.0) / 180.0 * cfg.max_res_x)
+    el = int((elevation_deg + 90.0) / 180.0 * cfg.max_res_y)
+    az = min(max(az, 0), cfg.max_res_x - 1)
+    el = min(max(el, 0), cfg.max_res_y - 1)
+    return az * cfg.max_res_y + el

@@ -57,6 +57,22 @@ Phases (any failure raises, so the exit code is non-zero):
    ``steer_cartesian_degree``: whole frames reach the sink, and a
    received frame's audio passes the same gate.  (c) 20 of those maps
    through ``viz.Front.multi_loop`` on an array display.
+8. FFT and MVDR (``ops.freq``; plain torch, no kernel of its own): (a)
+   the Bartlett map of the golden reference frame at ``Config()``
+   (100-20000 Hz) and ``Config.fft_reference()`` against the complex128
+   run of the same function (rtol 2e-4 / atol 1e-6) and its distance to
+   the golden rows, with the time per call at B=1 and B=16 beside one
+   ``torch.matmul`` of the complex steering product; (b) 20 batches of 16
+   drifting-tone frames through ``make_mvdr_stream("maps")`` in complex64
+   against the same stream in complex128 (every map finite, worst
+   direction within 0.05 on every frame); (c) the full-rate heatmap stage
+   with that stream (K=16, 192 channels, 4 s at line rate; 0 skipped, 0
+   gaps), and the device ms of one batch's scan, of ``mvdr_d0`` and of
+   ``refresh_precision``, each with its bound; (d) the combined stage
+   with ``beam="mvdr"`` (maps and beams from one state update; 0 skipped,
+   0 gaps, 0 underruns, ``processed * 256`` samples, beams finite and
+   ``|beam| < 10``); (e) 20 maps of the live stage through the stream's
+   single-frame recursion, with the per-frame latency.
 
 The line before the last is a JSON record of the kernels; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -104,6 +120,16 @@ FULLRATE_SECONDS = 4.0
 # against the plain beam (the JAX package's tests/test_fullrate.py:204,258)
 LISTEN_AZ, LISTEN_EL = 10.0, -5.0
 LISTEN_RTOL, LISTEN_ATOL = 1e-4, 1e-7
+# phase 8: Bartlett against its complex128 run (the JAX package's
+# tests/test_freq.py:25), the complex64 MVDR stream against its complex128
+# run (worst direction, tests/test_freq.py:570), the batches of (b), the
+# audio lag limit of phase 7 (three batch periods at line rate) and the
+# frame period (the live stage's limit)
+BARTLETT_RTOL, BARTLETT_ATOL = 2e-4, 1e-6
+MVDR_DRIFT = 0.05
+MVDR_BATCHES = 20
+AUDIO_LIMIT_MS = 3 * FULLRATE_BATCH * 256 / 48828 * 1e3
+FRAME_MS = 256 / 48828 * 1e3
 
 
 def zero_counts() -> None:
@@ -628,9 +654,9 @@ class _Recorder:
 def _line_rate(p, stage, counter) -> tuple:
     """Drive a built, warmed-up full-rate stage of ``p``: the native
     emulator at line rate for FULLRATE_SECONDS, every launch count set to
-    0 just before the run and the path's kernel's (``counter``) read just
-    after it.  Returns (launches, seconds, packets sent, the emulator's
-    count every 0.25 s)."""
+    0 just before the run and the path's kernel's (``counter``; None on a
+    path without one) read just after it.  Returns (launches, seconds,
+    packets sent, the emulator's count every 0.25 s)."""
     from zybo_rt_sampler_image_detection_torch.ingest.streamer import (
         NativeStreamer)
 
@@ -656,7 +682,7 @@ def _line_rate(p, stage, counter) -> tuple:
         sent = marks[-1] - sent0
     finally:
         p.stop()
-        launches = getattr(*counter)
+        launches = getattr(*counter) if counter else None
         elapsed = time.perf_counter() - t0
         emu.stop()
     return launches, elapsed, sent, marks
@@ -1068,6 +1094,345 @@ def phase_listen_live(card: str) -> int:
     return launches
 
 
+# -- phase 8: FFT and MVDR ---------------------------------------------------
+
+
+def _cplx_bytes(*shape) -> int:
+    return 8 * int(np.prod(shape))
+
+
+def phase_bartlett(card: str) -> dict:
+    """(a) Bartlett on the golden reference frame at Config() (100-20000
+    Hz) and Config.fft_reference(), against the complex128 run of the same
+    function, with its distance to the golden rows (recorded on the CPU);
+    the time per call at B=1 and B=16 against one ``torch.matmul`` of the
+    (F, B, M) x (F, M, D) complex steering product, and the bound: bytes
+    of the steering tensor, the frames and the maps once; operations of
+    the complex product (8 F B M D), the squares and sums, and the rfft
+    (2.5 N log2 N a row)."""
+    from zybo_rt_sampler_image_detection_torch.config import Config
+    from zybo_rt_sampler_image_detection_torch.ops import freq
+
+    golden = np.load(os.path.join(HERE, "tests", "golden",
+                                  "reference_heatmaps.npz"))
+    frame = torch.from_numpy(golden["frame"]).cuda()
+    out = {}
+    for label, cfg, band, row in (
+            ("Config() 100-20000 Hz", Config(), (100.0, 20000.0), "fft"),
+            ("Config.fft_reference()", Config.fft_reference(), (),
+             "fft_reference_profile")):
+        t = freq.make_freq_tables(cfg, *band, device="cuda")
+        got = freq.fft_steered_power(frame, t)
+        ref = freq.fft_steered_power(frame.double(), t)
+        torch.cuda.synchronize()
+        assert torch.isfinite(got).all(), label
+        excess = ((got.double() - ref).abs()
+                  / (BARTLETT_RTOL * ref.abs() + BARTLETT_ATOL)).max().item()
+        gold = golden[row]
+        g_err = float((np.abs(got.cpu().numpy() - gold)
+                       / np.abs(gold)).max())
+        F, M, D = t.phase.shape
+        print(f"[fft] {label}: F={F} M={M} D={D}; vs its complex128 run "
+              f"{excess:.3f} of the rtol {BARTLETT_RTOL:.0e} / atol "
+              f"{BARTLETT_ATOL:.0e} gate; vs the golden row '{row}' max "
+              f"rel {g_err:.3e} (the JAX gate 1e-5, rows recorded on the "
+              f"CPU) [{card}]")
+        assert excess <= 1.0, f"Bartlett outside its gate: {label}"
+        gen = torch.Generator("cuda").manual_seed(8642)
+        for B in (1, FULLRATE_BATCH):
+            x = torch.randn(B, cfg.n_microphones, cfg.n_samples,
+                            device="cuda", generator=gen) * 0.05
+            S = freq._frame_fft(x, t).transpose(0, 1).contiguous()
+            iters = 20 if B == 1 else 10
+            call = time_ms(lambda: freq.fft_steered_power(x, t), iters)
+            lib = time_ms(lambda: torch.matmul(S, t.phase), iters)
+            N = cfg.n_samples
+            bd = bound(_cplx_bytes(F, M, D) + 4 * B * cfg.n_microphones * N
+                       + 4 * B * D,
+                       8 * F * B * M * D + 3 * F * B * D
+                       + 2.5 * B * M * N * np.log2(N))
+            print(f"[fft] {label} B={B:2d}: fft_steered_power "
+                  f"{call:.4f} ms, torch.matmul (F, B, M) x (F, M, D) "
+                  f"complex64 {lib:.4f} ms | bound {bd['bound_ms']:.4f} ms "
+                  f"({bd['bound_by']}) [{card}]")
+            if row == "fft":
+                out[f"B{B}"] = dict(ms=call, matmul_ms=lib, **bd)
+        del t
+        torch.cuda.empty_cache()
+    return out
+
+
+def _drift_frames(cfg, n: int, seed: int = 7) -> np.ndarray:
+    """A drifting tone on every mic plus noise (tests/test_freq.py:492):
+    frame i at 2300 + 37 i Hz, 0.3 and 0.03 of unit noise."""
+    rng = np.random.default_rng(seed)
+    t = np.arange(cfg.n_samples) / cfg.sample_rate
+    shape = (cfg.n_microphones, cfg.n_samples)
+    return np.stack([
+        np.tile(np.sin(2 * np.pi * (2300.0 + 37.0 * i) * t), (shape[0], 1))
+        + 0.3 * rng.standard_normal(shape) + 0.03 * rng.standard_normal(shape)
+        for i in range(n)]).astype(np.float32)
+
+
+def phase_mvdr_oracle(card: str) -> dict:
+    """(b) MVDR_BATCHES batches of 16 through ``make_mvdr_stream("maps")``
+    in complex64 and through the same stream fed float64 frames, which it
+    runs in complex128 (the same cadence, refreshes and carried d)."""
+    from zybo_rt_sampler_image_detection_torch.apps import pipeline
+    from zybo_rt_sampler_image_detection_torch.config import Config
+    from zybo_rt_sampler_image_detection_torch.ops import freq
+
+    cfg = Config()
+    frames = _drift_frames(cfg, MVDR_BATCHES * FULLRATE_BATCH)
+    f32 = pipeline.make_mvdr_stream(cfg, "maps")
+    f64 = pipeline.make_mvdr_stream(cfg, "maps")
+    f32.reset()
+    f64.reset()
+    errs, agree, finite = [], [], []
+    walls = []
+    for b in range(MVDR_BATCHES):
+        x = torch.from_numpy(
+            frames[b * FULLRATE_BATCH:(b + 1) * FULLRATE_BATCH]).cuda()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m32 = f32(x)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+        m64 = f64(x.double())
+        finite.append(torch.isfinite(m32).all())
+        errs.append(((m32.double() - m64).abs()
+                     / m64.abs().clamp_min(1e-30)).flatten(1).amax(1))
+        agree.append(m32.flatten(1).argmax(1) == m64.flatten(1).argmax(1))
+    errs = torch.cat(errs).cpu().numpy()
+    agree = torch.cat(agree).cpu().numpy()
+    assert all(bool(f) for f in finite), "non-finite MVDR map"
+    n = errs.size
+    worst = int(errs.argmax())
+    per_epoch = [float(errs[i:i + 64].max()) for i in range(0, n, 64)]
+    print(f"[mvdr] complex64 stream vs the same stream in complex128, "
+          f"Config() 100 Hz-Nyquist, alpha {f32.alpha}, {n} frames in "
+          f"batches of {FULLRATE_BATCH} ({f32.state['r']} frames at the "
+          f"last refresh, every {freq.refresh_interval(f32.alpha)}): "
+          f"worst-direction "
+          f"rel err max {errs.max():.3e} at frame {worst} (gate "
+          f"{MVDR_DRIFT}), per 64 frames "
+          f"{[float(f'{e:.3e}') for e in per_epoch]}; argmax agrees on "
+          f"{int(agree.sum())}/{n} frames; host wall per complex64 batch "
+          f"p50 {np.percentile(walls, 50):.2f} ms [{card}]")
+    assert errs.max() < MVDR_DRIFT, "complex64 stream drifted"
+    del f32, f64
+    torch.cuda.empty_cache()
+    return dict(max_err=float(errs.max()), argmax_agree=int(agree.sum()),
+                frames=n)
+
+
+def _mvdr_bounds(ft, B: int, channels: int) -> dict:
+    """Bounds of the MVDR steps at the stream's shape, from the work the
+    result needs.  ``mvdr_d0``: the (F, M, M) x (F, M, D) complex product
+    and the per-direction dot (8 F M^2 D + 8 F M D), reading P and the
+    steering tensor once.  One chunk of the scan: the projections P S,
+    a^H P S and S^H P S, the coefficient product, the anchor's solve,
+    the Woodbury advance and the covariance update (about 8 F (4 M^2 B + M
+    D B + 2 D B^2 + 3 M B^2) in all), reading the frames, the steering
+    tensor, P and R once and writing P, R, d and the maps.
+    ``refresh_precision``: a complex Cholesky and its inverse a bin (about
+    4 M^3 real operations), reading R and writing P."""
+    F, M, D = ft.phase.shape
+    N = ft.n_samples
+    d0 = bound(_cplx_bytes(F, M, M) + _cplx_bytes(F, M, D) + 4 * F * D,
+               8 * F * M * M * D + 8 * F * M * D)
+    scan = bound(4 * B * channels * N + _cplx_bytes(F, M, D)
+                 + 4 * _cplx_bytes(F, M, M) + 2 * 4 * F * D + 4 * B * D,
+                 8 * F * (4 * M * M * B + M * D * B + 2 * D * B * B
+                          + 3 * M * B * B))
+    refresh = bound(2 * _cplx_bytes(F, M, M), 4 * F * M ** 3)
+    return dict(d0=d0, scan=scan, refresh=refresh)
+
+
+def phase_mvdr_fullrate(card: str) -> dict:
+    """(c) The full-rate heatmap stage with the MVDR stream's Capon maps,
+    then the device ms of the stream's steps on a batch it took."""
+    from zybo_rt_sampler_image_detection_torch.apps import pipeline
+    from zybo_rt_sampler_image_detection_torch.config import Config
+    from zybo_rt_sampler_image_detection_torch.ops import freq
+
+    cfg = Config()
+    fn = pipeline.make_mvdr_stream(cfg, "maps")
+    p = pipeline.Pipeline(cfg, "lerp", replay_mode=True, backend="native",
+                          device="cuda", power_fn=fn)
+    seen = {"maps": 0, "finite": True}
+
+    def sink(powers, first_seq):
+        seen["maps"] += len(powers)
+        seen["finite"] &= bool(np.isfinite(powers).all())
+
+    stage = p.make_heatmap_batched(batch=FULLRATE_BATCH,
+                                   channels=FULLRATE_CHANNELS, sink=sink)
+    assert stage.power_fn is fn, "the stage wrapped the stream"
+    stage.warmup()
+    assert fn.state["n"] == 0, "warm-up left the stream's state polluted"
+    _, elapsed, sent, marks = _line_rate(p, stage, None)
+    rep = p.report()[stage.metric.name]
+    gaps = p.receiver.native_stats.gaps
+    line_rate = cfg.sample_rate / cfg.n_samples
+    print(f"[mvdr-fullrate] processed {stage.processed} frames in "
+          f"{elapsed:.2f} s ({stage.processed / elapsed:.1f}/s vs line rate "
+          f"{line_rate:.1f}/s); skipped {stage.skipped}; ingest gaps {gaps}; "
+          f"maps {seen['maps']} (all finite {seen['finite']}); refreshes "
+          f"to frame {fn.state['r']}; batch latency p50 "
+          f"{rep['latency_p50_ms']} ms p95 {rep['latency_p95_ms']} ms; "
+          f"emulator {sent / FULLRATE_SECONDS:.0f} pkt/s; packets per "
+          f"0.25 s {np.diff(marks).tolist()} [{card}]")
+    assert stage.processed > 0 and seen["finite"], "no finite maps"
+    assert stage.skipped == 0, f"{stage.skipped} frames skipped"
+    assert gaps == 0, f"{gaps} ingest gaps"
+
+    ft, st = fn.tables, fn.state["p"]
+    gen = torch.Generator("cuda").manual_seed(97)
+    x = torch.randn(FULLRATE_BATCH, FULLRATE_CHANNELS, cfg.n_samples,
+                    device="cuda", generator=gen) * 0.05
+    xf = pipeline._pad_full(x, cfg.n_microphones)
+    dq = freq.mvdr_d0(st, ft)
+    bounds = _mvdr_bounds(ft, FULLRATE_BATCH, FULLRATE_CHANNELS)
+
+    def scan():
+        return freq.mvdr_maps_scan(st, xf, ft, d0=dq, return_d=True)
+
+    times = dict(scan=time_ms(scan, 5),
+                 d0=time_ms(lambda: freq.mvdr_d0(st, ft), 5),
+                 refresh=time_ms(lambda: freq.refresh_precision(st, ft), 5))
+    walls = dict(scan=call_ms(scan, 5),
+                 d0=call_ms(lambda: freq.mvdr_d0(st, ft), 5),
+                 refresh=call_ms(lambda: freq.refresh_precision(st, ft), 5))
+    for k, label in (("scan", f"mvdr_maps_scan (one batch of "
+                              f"{FULLRATE_BATCH}, d carried)"),
+                     ("d0", "mvdr_d0"), ("refresh", "refresh_precision")):
+        bd = bounds[k]
+        print(f"[mvdr-fullrate] {label}: {times[k]:.4f} ms on CUDA events "
+              f"({walls[k]:.4f} ms wall a call) | bound "
+              f"{bd['bound_ms']:.4f} ms ({bd['bound_by']}) [{card}]")
+    out = dict(processed=stage.processed, skipped=stage.skipped,
+               rate=stage.processed / elapsed,
+               latency_p50_ms=rep["latency_p50_ms"],
+               latency_p95_ms=rep["latency_p95_ms"],
+               **{f"{k}_ms": v for k, v in times.items()},
+               **{f"{k}_bound_ms": bounds[k]["bound_ms"] for k in bounds})
+    del p, stage, fn, st
+    torch.cuda.empty_cache()
+    return out
+
+
+class _BoundSink:
+    """An audio sink that counts samples and keeps the largest |sample|
+    and whether every sample was finite."""
+
+    def __init__(self):
+        self.frames, self.peak, self.finite = 0, 0.0, True
+
+    def write(self, samples):
+        self.frames += samples.shape[0]
+        if samples.size:
+            self.finite &= bool(np.isfinite(samples).all())
+            self.peak = max(self.peak, float(np.abs(samples).max()))
+
+    def close(self):
+        pass
+
+
+def phase_mvdr_listen(card: str) -> dict:
+    """(d) The combined full-rate stage with ``beam="mvdr"``: Capon maps
+    and the adaptive beam from one streaming-inverse update a batch."""
+    from zybo_rt_sampler_image_detection_torch.apps import pipeline
+    from zybo_rt_sampler_image_detection_torch.config import Config
+
+    cfg = Config()
+    p = pipeline.Pipeline(cfg, "lerp", replay_mode=True, backend="native",
+                          device="cuda")
+    sink = _BoundSink()
+    seen = {"maps": 0, "finite": True}
+
+    def power_sink(powers, first_seq):
+        seen["maps"] += len(powers)
+        seen["finite"] &= bool(np.isfinite(powers).all())
+
+    stage = p.make_mimo_miso_batched(batch=FULLRATE_BATCH, beam="mvdr",
+                                     channels=FULLRATE_CHANNELS, sink=sink,
+                                     power_sink=power_sink)
+    d = p.steer_cartesian_degree(LISTEN_AZ, LISTEN_EL)
+    stage.warmup()
+    _, elapsed, sent, marks = _line_rate(p, stage, None)
+    rep = p.report()[stage.metric.name]
+    gaps = p.receiver.native_stats.gaps
+    lat = stage.audio_latency()
+    line_rate = cfg.sample_rate / cfg.n_samples
+    print(f"[mvdr-listen] beam='mvdr', direction {d}: processed "
+          f"{stage.processed} frames in {elapsed:.2f} s "
+          f"({stage.processed / elapsed:.1f}/s vs line rate "
+          f"{line_rate:.1f}/s); skipped {stage.skipped}; ingest gaps {gaps}; "
+          f"underrun frames {stage.underrun_frames}; samples "
+          f"{stage.samples}; maps {seen['maps']} (finite {seen['finite']}); "
+          f"beams finite {sink.finite}, max |beam| {sink.peak:.4f}; batch "
+          f"latency p50 {rep['latency_p50_ms']} ms p95 "
+          f"{rep['latency_p95_ms']} ms; audio e2e p50 "
+          f"{lat.get('audio_e2e_p50_ms')} ms p95 "
+          f"{lat.get('audio_e2e_p95_ms')} ms (limit {AUDIO_LIMIT_MS:.1f} "
+          f"ms, phase 7's); emulator {sent / FULLRATE_SECONDS:.0f} pkt/s; "
+          f"packets per 0.25 s {np.diff(marks).tolist()} [{card}]")
+    assert stage.processed > 0, "no batch processed"
+    assert stage.skipped == 0 and gaps == 0, "drops"
+    assert stage.underrun_frames == 0, "underruns"
+    assert stage.samples == stage.processed * cfg.n_samples == sink.frames
+    assert sink.finite and sink.peak < 10.0, "beams not finite and bounded"
+    assert seen["finite"], "non-finite MVDR map"
+    out = dict(processed=stage.processed, rate=stage.processed / elapsed,
+               max_beam=sink.peak, **lat)
+    del p, stage
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_mvdr_live(card: str) -> dict:
+    """(e) 20 maps of the live stage through the MVDR stream's
+    single-frame recursion (``update_precision`` + the Capon map)."""
+    from zybo_rt_sampler_image_detection_torch.apps import pipeline
+    from zybo_rt_sampler_image_detection_torch.config import Config
+    from zybo_rt_sampler_image_detection_torch.ingest.streamer import (
+        NativeStreamer)
+
+    cfg = Config()
+    tx, ty = 40, 20
+    sig = np.tile(_source_frame(cfg, tx, ty), (1, 8))
+    fn = pipeline.make_mvdr_stream(cfg, "maps")
+    p = pipeline.Pipeline(cfg, "lerp", replay_mode=True, backend="native",
+                          device="cuda", power_fn=fn)
+    emu = NativeStreamer(cfg, n_arrays=cfg.active_arrays)
+    maps = []
+    try:
+        emu.start(sig, rate=cfg.sample_rate)
+        p.connect(timeout=30.0)
+        p.start_heatmap()
+        while len(maps) < N_HEATMAPS:
+            maps.append(p.q_power.get(timeout=30.0)[0])
+    finally:
+        p.stop()
+        emu.stop()
+    rep = p.report()["heatmap"]
+    stack = np.stack(maps)
+    pk = np.unravel_index(stack[-1].argmax(), stack[-1].shape)
+    print(f"[mvdr-live] {len(maps)} maps through the single-frame "
+          f"recursion ({fn.state['n']} frames absorbed): per-frame latency "
+          f"p50 {rep['latency_p50_ms']} ms p95 {rep['latency_p95_ms']} ms "
+          f"(frame period {FRAME_MS:.2f} ms), rate {rep['rate_hz']} Hz; "
+          f"last map's peak {tuple(int(i) for i in pk)} (source at ({tx}, "
+          f"{ty})) [{card}]")
+    assert np.isfinite(stack).all(), "non-finite live MVDR map"
+    out = dict(latency_p50_ms=rep["latency_p50_ms"],
+               latency_p95_ms=rep["latency_p95_ms"])
+    del p, fn
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
@@ -1094,9 +1459,16 @@ def main() -> int:
     listen = phase_listen_fullrate(card)
     listen_live = phase_listen_live(card)
     t6 = time.perf_counter()
+    phase_bartlett(card)
+    phase_mvdr_oracle(card)
+    phase_mvdr_fullrate(card)
+    phase_mvdr_listen(card)
+    phase_mvdr_live(card)
+    t7 = time.perf_counter()
     print(f"[time] build+K1 {t1 - t0:.1f} s, K5 {t2 - t1:.1f} s, K2-4 "
           f"{t3 - t2:.1f} s, live {t4 - t3:.1f} s, full rate+policy "
-          f"{t5 - t4:.1f} s, listen {t6 - t5:.1f} s")
+          f"{t5 - t4:.1f} s, listen {t6 - t5:.1f} s, fft/mvdr "
+          f"{t7 - t6:.1f} s")
     # launches: the main path's run (phase 5 live / phase 6 full rate);
     # listen_launches: the combined full-rate stage's run (phase 7)
     kernels = [dict(name="equiv_power", route="cuda", source=KERNEL_SOURCE,

@@ -193,7 +193,10 @@ def test_demo_fullrate_cpu(capsys):
 
 
 def test_demo_fullrate_audio_not_ported():
-    """The listening stages are ported; their MVDR beam is not yet."""
-    with pytest.raises(SystemExit, match="not yet ported"):
+    """Every full-rate path is ported (``--beam mvdr`` runs in
+    tests/test_torch_mvdr_stream.py); the MVDR imaging refuses the
+    time-domain equiv flag it would ignore."""
+    with pytest.raises(SystemExit, match="reformulate"):
         demo.main(["fullrate", "--device", "cpu", "--preset", "tiny",
-                   "--audio", "null", "--beam", "mvdr"])
+                   "--audio", "null", "--beam", "mvdr", "--algorithm",
+                   "mvdr", "--equiv"])

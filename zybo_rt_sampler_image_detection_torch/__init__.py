@@ -5,8 +5,10 @@ NVIDIA H100.  It mirrors that package's layout (``ops/ ingest/ apps/
 utils/``) and imports ``torch``, never ``jax``.  Ported so far: the MIMO
 heatmap (UDP packets -> ingest -> steering tables -> exact
 frequency-domain reformulation -> the fused equiv-power CUDA kernel ->
-heatmap queue -> display) and delay-and-sum listening (the steered beam
-of every frame -> audio sink).
+heatmap queue -> display), delay-and-sum listening (the steered beam of
+every frame -> audio sink), and the frequency-domain beamformers of
+``ops.freq``: Bartlett (FFT phase-shift) maps, streaming MVDR (Capon)
+maps and adaptive MVDR listening, with ``apps.plot``.
 
 Quick start::
 

@@ -6,16 +6,20 @@ Examples::
     python -m zybo_rt_sampler_image_detection_torch.apps.demo emulate &
     python -m zybo_rt_sampler_image_detection_torch.apps.demo mimo --replay --headless --equiv-kernel --frames 20
     python -m zybo_rt_sampler_image_detection_torch.apps.demo mimo --replay
+    python -m zybo_rt_sampler_image_detection_torch.apps.demo mimo --replay --headless --algorithm mvdr --frames 20
     python -m zybo_rt_sampler_image_detection_torch.apps.demo miso --replay --audio wav --seconds 2
+    python -m zybo_rt_sampler_image_detection_torch.apps.demo miso --replay --beam mvdr --audio null
     python -m zybo_rt_sampler_image_detection_torch.apps.demo fullrate --seconds 10 --audio null
+    python -m zybo_rt_sampler_image_detection_torch.apps.demo fullrate --seconds 10 --algorithm mvdr --audio null --beam mvdr
     python -m zybo_rt_sampler_image_detection_torch.apps.demo fullrate --device cpu --preset tiny --seconds 3
 
 Ported so far: ``mimo`` (the cv2 heatmap window, or stats when
-``--headless``), ``miso`` (live or ``--fullrate`` gapless listening),
-``fullrate`` (heatmaps, ``--audio`` heatmaps and the beam from one
-transfer, ``--audio-only``) and ``emulate`` (parity with ``PC/demo.py``
-mimo/miso and ``udp/streamer.c``).  The MVDR beam (``--beam mvdr``),
-``record``, ``sensorfusion`` and ``web`` are later slices.
+``--headless``; every algorithm, ``fft`` and ``mvdr`` included), ``miso``
+(live or ``--fullrate`` gapless listening; ``--beam mvdr`` always takes
+the batched stage), ``fullrate`` (heatmaps, ``--audio`` heatmaps and the
+beam from one transfer, ``--audio-only``) and ``emulate`` (parity with
+``PC/demo.py`` mimo/miso and ``udp/streamer.c``).  ``record``,
+``sensorfusion`` and ``web`` are later slices.
 """
 
 from __future__ import annotations
@@ -70,26 +74,41 @@ def _resolve_arrays(args, cfg) -> int:
     return n
 
 
-_MVDR_NOT_PORTED = ("--beam mvdr (the streaming-MVDR beam) is not yet "
-                    "ported (ROADMAP queue 1, item 10)")
-
-
 def _make_pipeline(args, ring_frames: int = 64, audio_sink: str = "null",
                    audio_path=None):
-    from .pipeline import Pipeline
+    from .pipeline import Pipeline, make_mvdr_stream
 
     cfg = {"default": Config, "reference": Config.reference,
            "fft": Config.fft_reference,
            "tiny": Config.tiny}[args.preset]()
     if args.port:
         cfg = cfg.replace(udp_port=args.port)
-    if args.algorithm in ("fft", "mvdr"):
-        raise SystemExit(f"--algorithm {args.algorithm} is not yet ported "
-                         f"(ROADMAP queue 1, item 10)")
-    return Pipeline(cfg, algorithm=args.algorithm, replay_mode=args.replay,
+    power_fn = None
+    algorithm = args.algorithm
+    if algorithm in ("fft", "mvdr") and (args.equiv or args.equiv_kernel):
+        raise SystemExit(
+            f"--equiv/--equiv-kernel reformulate the TIME-domain "
+            f"algorithms (pad/lerp/convolve/hybrid/truncated); "
+            f"--algorithm {algorithm} computes power its own way and "
+            f"the flags would be ignored")
+    if algorithm == "fft":
+        from ..ops import freq
+
+        tables = freq.make_freq_tables(cfg, device=args.device)
+        power_fn = lambda f: freq.fft_steered_power(f, tables)  # noqa: E731
+        algorithm = "lerp"          # miso still needs time-domain tables
+    elif algorithm == "mvdr":
+        # the streaming-inverse (RLS) MVDR: batched calls (the full-rate
+        # stage) take the subspace-recursive scan (exact per-frame Capon
+        # maps + one Woodbury state update per chunk), single frames (the
+        # live loop) the per-frame recursion; the state machine owns the
+        # d0 carry and the alpha-aware refresh cadence
+        power_fn = make_mvdr_stream(cfg, "maps", device=args.device)
+        algorithm = "lerp"
+    return Pipeline(cfg, algorithm=algorithm, replay_mode=args.replay,
                     backend=args.backend, device=args.device,
                     ring_frames=ring_frames, audio_sink=audio_sink,
-                    audio_path=audio_path,
+                    audio_path=audio_path, power_fn=power_fn,
                     power_backend=("equiv_kernel" if args.equiv_kernel
                                    else "freq_equiv" if args.equiv
                                    else "auto"))
@@ -151,9 +170,8 @@ def cmd_miso(args):
     steered from the CLI.  ``--fullrate`` switches from the reference's
     latest-frame sampling to the gapless batched stage (every frame
     beamed, sample-count-exact output), which passes only with 0 underrun
-    frames."""
-    if args.beam == "mvdr":
-        raise SystemExit(_MVDR_NOT_PORTED)
+    frames; ``--beam mvdr`` (streaming-MVDR distortionless weights)
+    always takes that stage."""
     sink = args.audio or ("auto" if not args.headless else "wav")
     p = _make_pipeline(args, ring_frames=max(64, 4 * args.batch),
                        audio_sink=sink, audio_path=args.out)
@@ -162,11 +180,11 @@ def cmd_miso(args):
         # inside the try: a connect/bring-up failure must still tear the
         # pipeline down (leaked receiver/stage threads keep the process
         # alive after the traceback)
-        if args.fullrate:
+        if args.fullrate or args.beam == "mvdr":
             stage = p.make_miso_batched(batch=args.batch, beam=args.beam)
             # steered before it runs: no batch beams toward direction 0
             p.steer_cartesian_degree(args.azimuth, args.elevation)
-            stage.warmup()                  # build before packets flow
+            stage.warmup()      # build (and reset an MVDR state) first
             p.connect()
             p.run_stage(stage)
         else:
@@ -257,11 +275,9 @@ def cmd_fullrate(args):
     beamforming of EVERY frame; prints per-stage accounting.  The pass
     criterion is skipped == 0 (no frame overwritten unread) and ingest
     gaps == 0 for the whole run, and with ``--audio`` 0 underrun frames
-    too.  The device program is built before the first packet flows, and
-    only the connected channel rows are sent to the device (the tail rows
-    are never written)."""
-    if args.audio and args.beam == "mvdr":
-        raise SystemExit(_MVDR_NOT_PORTED)
+    too.  The device program is built (and a stateful MVDR stream reset)
+    before the first packet flows, and only the connected channel rows are
+    sent to the device (the tail rows are never written)."""
     from ..ingest.streamer import NativeStreamer
     from ..utils import audio as audio_mod
 
@@ -373,8 +389,8 @@ def main(argv=None):
                         "sample-count-exact stream (vs the reference's "
                         "latest-frame sampling)")
     p.add_argument("--beam", default="time", choices=["time", "mvdr"],
-                   help="beam backend: delay-and-sum (mvdr is not yet "
-                        "ported)")
+                   help="beam backend: delay-and-sum, or mvdr (adaptive "
+                        "streaming-MVDR weights, gapless batched stage)")
     p.add_argument("--batch", type=int, default=16,
                    help="frames per device launch in --fullrate mode")
     p.set_defaults(fn=cmd_miso)
@@ -410,8 +426,9 @@ def main(argv=None):
                    help="with --audio: listening only, no heatmaps")
     p.add_argument("--audio-out", default="fullrate_miso.wav")
     p.add_argument("--beam", default="time", choices=["time", "mvdr"],
-                   help="audio beam backend: delay-and-sum (mvdr is not "
-                        "yet ported)")
+                   help="audio beam backend: delay-and-sum, or mvdr "
+                        "(with --audio: MVDR maps and beams from one "
+                        "streaming-inverse update per batch)")
     p.add_argument("--transfer", default="f32", choices=["f32", "f16"],
                    help="host->device sample dtype: f16 halves the "
                         "traffic at ~1e-3 relative error (display-grade "

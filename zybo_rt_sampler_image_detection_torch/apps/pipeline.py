@@ -18,11 +18,14 @@ Stages ported so far:
 * :class:`BatchedMimoMisoProducer` — heatmaps and the beam from one
   transfer per batch (``_loop_mimo_and_miso_*``, ``main.pyx:279-380``).
 
+:func:`make_mvdr_stream` is the streaming-MVDR state machine behind
+``--algorithm mvdr`` and ``beam="mvdr"`` (Capon maps, adaptive
+distortionless beams, or both from one state update).
+
 Steering: :meth:`Pipeline.steer_cartesian_degree` /
 :meth:`Pipeline.steer_click` mirror ``main.pyx:498-528``; the direction
 indexes the tables on the device, so a steer needs no host sync and no
-rebuild.  The MVDR beam, camera and tracker stages are later slices
-(ROADMAP).
+rebuild.  The camera and tracker stages are later slices (ROADMAP).
 """
 
 from __future__ import annotations
@@ -159,12 +162,140 @@ def default_power_fn(tables):
 def _pad_full(frames: torch.Tensor, n_full: int) -> torch.Tensor:
     """Device prologue shared by the full-rate stages: upcast f16-transfer
     batches and pad channel-sliced transfers back to the full mic axis
-    (the tail rows are always zero)."""
-    frames = frames.float()
+    (the tail rows are always zero).  float64 frames stay float64 (the
+    MVDR stream then runs in complex128)."""
+    if frames.dtype != torch.float64:
+        frames = frames.float()
     pad = n_full - frames.shape[1]
     if pad > 0:
         frames = F_.pad(frames, (0, 0, 0, pad))
     return frames
+
+
+def make_mvdr_stream(cfg: Config, kind: str = "maps", alpha: float = 0.9,
+                     band_low: float = 100.0, device="cuda"):
+    """The streaming-MVDR state machine shared by every production site
+    (``demo --algorithm mvdr``, the full-rate listening stage, and the
+    combined imaging+listening stage) — ONE implementation of the
+    drift-critical cadence logic:
+
+    * **alpha-aware exact refresh**: every Sherman-Morrison/Woodbury
+      step divides P by alpha, so f32 drift amplifies ~1/alpha per
+      frame; an exact Cholesky refresh runs every
+      ``freq.refresh_interval(alpha)`` frames (a fixed 256-frame
+      interval blows up mid-run at alpha=0.9).
+    * **carried quadratic form**: the ``a^H P a`` evaluation (the
+      O(F M^2 D) product of a batch) is carried across batched calls and
+      re-measured every ``freq.d0_carry_interval(alpha)`` frames — the
+      carried correction's error also amplifies 1/alpha per frame.
+    * **reset/warmup** (``fn.reset()``): drop warmup pollution (a zero
+      block scales P by alpha^-B and leaves R at 1e-12 I) and run the
+      periodic programs once up front, so that the first Cholesky and
+      the first full quadratic form do not stall the stage mid-run.
+
+    ``kind`` selects what one call computes:
+
+    * ``"maps"``: ``fn(frames (B, M, N)) -> (B, X, Y)`` exact per-frame
+      Capon maps (``freq.mvdr_maps_scan``); also accepts a single
+      ``(M, N)`` frame -> ``(X, Y)`` via the per-frame recursion (the
+      live loop).
+    * ``"beams"``: ``fn(frames, direction) -> (B, N)`` adaptive
+      distortionless listening beams (``freq.mvdr_listen_step``).
+    * ``"maps_beams"``: ``fn(frames, direction) -> (maps, beams)`` — one
+      streaming-inverse update shared between the Capon maps and the beam
+      weights (one host->device transfer serves both).
+
+    Channel-sliced / f16 batches are padded back to the full mic axis
+    inside ``fn``.  The host counters are Python ints and nothing in a
+    call reads the device back, so the stages keep two batches in
+    flight.  Returns ``fn`` with ``fn.reset()``, ``fn.tables``,
+    ``fn.state``, ``fn.tick(k)`` and ``fn.alpha``.  On the card unless
+    ``device="cpu"``.  Ref: ``api.c:576-581`` (live steer),
+    ``api.c:491-543`` (miso_loop).
+    """
+    from ..ops import freq
+
+    if kind not in ("maps", "beams", "maps_beams"):
+        raise ValueError(f"unknown mvdr stream kind {kind!r}")
+    ft = freq.make_freq_tables(cfg, band_low, device=device)
+    n_full = cfg.n_microphones
+    state = {"p": freq.init_precision(ft), "n": 0, "r": 0, "dq": None,
+             "dqc": 0}
+    refresh_every = freq.refresh_interval(alpha)
+    carry_max = freq.d0_carry_interval(alpha)
+
+    def _carried_dq():
+        if state["dq"] is None or state["dqc"] >= carry_max:
+            state["dq"] = freq.mvdr_d0(state["p"], ft)
+            state["dqc"] = 0
+        return state["dq"]
+
+    def _tick(k: int):
+        state["n"] += k
+        state["dqc"] += k
+        if state["n"] - state["r"] >= refresh_every:
+            state["p"] = freq.refresh_precision(state["p"], ft)
+            state["dq"] = None         # re-measure from the refreshed P
+            state["r"] = state["n"]
+
+    def _frames(frames):
+        return torch.as_tensor(frames, device=ft.device)
+
+    if kind == "beams":
+        def fn(frames, direction):
+            frames = _pad_full(_frames(frames), n_full)
+            beams, state["p"] = freq.mvdr_listen_step(
+                state["p"], frames, ft, direction, alpha=alpha)
+            _tick(frames.shape[0])
+            return beams
+    elif kind == "maps_beams":
+        def fn(frames, direction):
+            frames = _pad_full(_frames(frames), n_full)
+            maps, state["p"], state["dq"] = freq.mvdr_maps_scan(
+                state["p"], frames, ft, alpha=alpha, d0=_carried_dq(),
+                return_d=True)
+            beams = freq.mvdr_beam_precision(state["p"], ft, frames,
+                                             direction)
+            _tick(frames.shape[0])
+            return maps, beams
+    else:
+        def fn(frames):
+            frames = _frames(frames)
+            if frames.ndim == 3:
+                maps, state["p"], state["dq"] = freq.mvdr_maps_scan(
+                    state["p"], _pad_full(frames, n_full), ft, alpha=alpha,
+                    d0=_carried_dq(), return_d=True)
+                _tick(frames.shape[0])
+            else:
+                state["p"] = freq.update_precision(state["p"], frames, ft,
+                                                   alpha=alpha)
+                state["dq"] = None  # P moved outside the carried recursion
+                maps = freq.mvdr_power_precision(state["p"], ft)
+                _tick(1)
+            return maps
+
+    def reset():
+        state["p"] = freq.init_precision(ft)
+        freq.refresh_precision(state["p"], ft)
+        if kind != "beams":
+            freq.mvdr_d0(state["p"], ft)
+        if ft.device.type == "cuda":
+            torch.cuda.synchronize(ft.device)
+        state["dq"] = None
+        state["n"] = state["r"] = state["dqc"] = 0
+
+    fn.reset = reset
+    fn.tables = ft
+    fn.state = state
+    # embedded-state consumers run the per-call step themselves but MUST
+    # share this exact cadence: set state["p"] to the post-batch state,
+    # then tick(k)
+    fn.tick = _tick
+    fn.alpha = alpha
+    # batched calls pad/upcast channel-sliced or f16 transfers themselves:
+    # the batched stages must not wrap them in a second pad
+    fn.pads_in_program = True
+    return fn
 
 
 def _batched_power_program(tables, n_full):
@@ -178,6 +309,10 @@ def _batched_power_program(tables, n_full):
     reuses takes the place of the jit's input donation."""
     fn = default_power_fn(tables)
     return lambda frames: fn(_pad_full(frames, n_full))
+
+
+def _identity(x):
+    return x
 
 
 class Stage(threading.Thread):
@@ -251,7 +386,9 @@ class BatchedStage(Stage):
     Subclasses implement ``launch(frames_dev) -> device tensor`` or a
     tuple of them (must not block) and ``consume(host_output, first_seq,
     skipped, stamps=None)``, which gets a NumPy array or a tuple of them
-    in the same shape.  A subclass that sets ``want_stamps`` gets each
+    in the same shape, and set ``stateful_fn`` to the device program they
+    were given: when it has a ``reset`` (the MVDR stream), :meth:`warmup`
+    calls it.  A subclass that sets ``want_stamps`` gets each
     batch's per-frame ring publish times (``time.perf_counter`` seconds)
     as ``stamps``.  Accounting: ``processed`` frames through the device,
     ``skipped`` frames the ring overwrote unread (0 = full rate
@@ -285,6 +422,7 @@ class BatchedStage(Stage):
         # subclasses that need per-frame ring publish times (the audio
         # e2e latency contract) set this before start()
         self.want_stamps = False
+        self.stateful_fn = None
 
     def _slot_for(self, shape) -> _Slot:
         if self._slots is None or tuple(self._slots[0].host.shape) != shape:
@@ -335,13 +473,18 @@ class BatchedStage(Stage):
 
     def warmup(self):
         """Build the kernels and first-call state before any packets flow
-        (a first build mid-run stalls the stage and drops frames)."""
+        (a first build mid-run stalls the stage and drops frames), then
+        reset a stateful device program, whose state the zero batch
+        polluted."""
         n_ch = self.channels or self.receiver.cfg.n_microphones
         zeros = np.zeros((self.batch, n_ch, self.receiver.cfg.n_samples),
                          np.float32)
         host, done = self._dispatch(zeros)
         if done is not None:
             done.synchronize()
+        reset = getattr(self.stateful_fn, "reset", None)
+        if reset is not None:
+            reset()
 
     def _finish(self, pending):
         host, done, first, skipped, t0, stamps = pending
@@ -411,13 +554,16 @@ class BatchedHeatmapProducer(BatchedStage):
         self.tables = tables
         self.q_power = q_power
         self.sink = sink or self._default_sink
+        self.stateful_fn = power_fn
         n_full = receiver.cfg.n_microphones
         if power_fn is None:
             power_fn = _batched_power_program(tables, n_full)
-        elif (channels and channels < n_full) or transfer != "f32":
+        elif ((channels and channels < n_full) or transfer != "f32") \
+                and not getattr(power_fn, "pads_in_program", False):
             # a custom power_fn takes full-width f32 (B, M, N) batches:
             # restore them first, or the active-mic gather would index
-            # past the sliced rows
+            # past the sliced rows.  One that pads by itself (the MVDR
+            # stream) says so and is not wrapped.
             base_fn = power_fn
             power_fn = lambda frames: base_fn(_pad_full(frames, n_full))  # noqa: E731
         self.power_fn = power_fn
@@ -432,15 +578,6 @@ class BatchedHeatmapProducer(BatchedStage):
 
     def consume(self, powers, first_seq: int, skipped: int, stamps=None):
         self.sink(powers, first_seq)
-
-
-def _check_beam(beam: str) -> None:
-    """The listening stages' beam backends: delay-and-sum only so far."""
-    if beam == "mvdr":
-        raise ValueError("beam='mvdr' (the streaming-MVDR beam) is not yet "
-                         "ported (ROADMAP queue 1, item 10)")
-    if beam != "time":
-        raise ValueError(f"unknown beam backend {beam!r}")
 
 
 class MisoProducer(Stage):
@@ -572,7 +709,7 @@ class BatchedMisoProducer(BatchedStage):
         super().__init__(name, receiver, metrics, batch, channels, transfer,
                          device=device)
         self.sink = sink
-        self.beam_fn = beam_fn
+        self.beam_fn = self.stateful_fn = beam_fn
         self.post_fn = post_fn
         self.n_samples = n_samples
         self._direction = 0
@@ -632,7 +769,7 @@ class BatchedMimoMisoProducer(BatchedMisoProducer):
                          post_fn=post_fn, n_samples=n_samples,
                          channels=channels, name="mimo_miso_batched",
                          transfer=transfer, device=device)
-        self.process_fn = process_fn
+        self.process_fn = self.stateful_fn = process_fn
         self.q_power = q_power
         self.power_sink = power_sink or self._default_power_sink
 
@@ -720,6 +857,11 @@ class Pipeline:
             zeros = torch.zeros((self.cfg.n_microphones, self.cfg.n_samples),
                                 device=self.device)
             s.power_fn(zeros).cpu()
+            reset = getattr(s.power_fn, "reset", None)
+            if reset is not None:
+                # a stateful power_fn (the MVDR stream): drop the zero
+                # frame's pollution and run its periodic programs once
+                reset()
         self.stages.append(s)
         s.start()
         return s
@@ -777,47 +919,74 @@ class Pipeline:
         return s
 
     def make_miso_batched(self, batch: int = 16, beam: str = "time",
-                          channels: int = 0,
+                          channels: int = 0, alpha: float = 0.9,
                           sink: Optional[audio_mod.AudioSink] = None,
                           transfer: str = "f32"):
-        """Build (don't start) the full-rate listening stage: batched
-        delay-and-sum (:func:`beamform.miso_beam`) through this pipeline's
-        tables, with the reference's gain chain (``api.c:517-522``)."""
-        _check_beam(beam)
+        """Build (don't start) the full-rate listening stage.
+
+        ``beam='time'``: batched delay-and-sum (:func:`beamform.miso_beam`)
+        through this pipeline's tables, with the reference's gain chain
+        (``api.c:517-522``).  ``beam='mvdr'``: the adaptive distortionless
+        beam — each batch is absorbed into the streaming inverse
+        covariance and beamed with the refreshed MVDR weights
+        (``freq.mvdr_listen_step`` through :func:`make_mvdr_stream`)."""
         tables, n_full = self.tables, self.cfg.n_microphones
+        if beam == "time":
+            def beam_fn(frames, d):
+                return beamform.miso_beam(_pad_full(frames, n_full), tables,
+                                          d)
 
-        def beam_fn(frames, d):
-            return beamform.miso_beam(_pad_full(frames, n_full), tables, d)
-
+            post_fn = self._gain
+        elif beam == "mvdr":
+            beam_fn = make_mvdr_stream(self.cfg, "beams", alpha=alpha,
+                                       device=self.device)
+            # the MVDR beam is distortionless (unit gain toward the steer
+            # direction): no 1/n·MIC_GAIN rescale
+            post_fn = _identity
+        else:
+            raise ValueError(f"unknown beam backend {beam!r}")
         s = BatchedMisoProducer(self.receiver, self._sink(sink),
-                                self.metrics, batch, beam_fn, self._gain,
+                                self.metrics, batch, beam_fn, post_fn,
                                 self.cfg.n_samples, channels=channels,
                                 transfer=transfer, device=self.device)
         self._miso = s
         return s
 
     def make_mimo_miso_batched(self, batch: int = 16, beam: str = "time",
-                               channels: int = 0,
+                               channels: int = 0, alpha: float = 0.9,
                                sink: Optional[audio_mod.AudioSink] = None,
                                power_sink=None, transfer: str = "f32"):
         """Build (don't start) the combined full-rate imaging+listening
-        stage: one transfer per batch, padded once on the device, feeding
-        the heatmap program and the beam.  The heatmap half is the
-        pipeline's ``power_fn`` when it has one (enabling audio must not
-        switch the imaging semantics), else the policy's program
-        (:func:`_batched_power_program`)."""
-        _check_beam(beam)
+        stage: one transfer per batch, padded once on the device.
+
+        ``beam='time'``: the heatmap program and the delay-and-sum beam.
+        The heatmap half is the pipeline's ``power_fn`` when it has one
+        (enabling audio must not switch the imaging semantics), else the
+        policy's program (:func:`_batched_power_program`).  ``beam='mvdr'``:
+        the MVDR stream's ``"maps_beams"`` kind — ONE streaming-inverse
+        update per batch shared by the Capon maps and the beam weights."""
         tables, n_full = self.tables, self.cfg.n_microphones
-        power_fn = (self._power_fn if self._power_fn is not None
-                    else _batched_power_program(tables, n_full))
+        if beam == "time":
+            power_fn = (self._power_fn if self._power_fn is not None
+                        else _batched_power_program(tables, n_full))
 
-        def process_fn(frames, d):
-            frames = _pad_full(frames, n_full)
-            return power_fn(frames), beamform.miso_beam(frames, tables, d)
+            def process_fn(frames, d):
+                frames = _pad_full(frames, n_full)
+                return power_fn(frames), beamform.miso_beam(frames, tables,
+                                                            d)
 
+            if hasattr(power_fn, "reset"):       # a stateful power_fn
+                process_fn.reset = power_fn.reset
+            post_fn = self._gain
+        elif beam == "mvdr":
+            process_fn = make_mvdr_stream(self.cfg, "maps_beams",
+                                          alpha=alpha, device=self.device)
+            post_fn = _identity                  # distortionless
+        else:
+            raise ValueError(f"unknown beam backend {beam!r}")
         s = BatchedMimoMisoProducer(self.receiver, self._sink(sink),
                                     self.metrics, batch, process_fn,
-                                    self._gain, self.cfg.n_samples,
+                                    post_fn, self.cfg.n_samples,
                                     self.q_power, power_sink=power_sink,
                                     channels=channels, transfer=transfer,
                                     device=self.device)
@@ -828,7 +997,7 @@ class Pipeline:
                            warmup: bool = True, channels: int = 0,
                            sink: Optional[audio_mod.AudioSink] = None):
         """Full-rate variant of :meth:`start_miso`: gapless line-rate
-        listening."""
+        listening (the warm-up resets an MVDR beam's state)."""
         s = self.make_miso_batched(batch=batch, beam=beam,
                                    channels=channels, sink=sink)
         if warmup:

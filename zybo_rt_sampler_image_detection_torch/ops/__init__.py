@@ -1,3 +1,3 @@
-from . import geometry, beamform, freq_equiv, equiv_kernel
+from . import geometry, beamform, freq, freq_equiv, equiv_kernel
 
-__all__ = ["geometry", "beamform", "freq_equiv", "equiv_kernel"]
+__all__ = ["geometry", "beamform", "freq", "freq_equiv", "equiv_kernel"]

@@ -73,6 +73,22 @@ Phases (any failure raises, so the exit code is non-zero):
    0 gaps, 0 underruns, ``processed * 256`` samples, beams finite and
    ``|beam| < 10``); (e) 20 maps of the live stage through the stream's
    single-frame recursion, with the per-frame latency.
+9. Vision and the host sensor-fusion chain (``models``, ``fusion``; no
+   kernel of their own: cuDNN FP32 convs with TF32 off, decode and NMS in
+   torch): (a) the full-width detector (``YoloConfig()``: 416 px, width
+   1.0, seeded, random BatchNorm statistics) on the card against the same
+   module on the CPU at K = 1, 4, 16 (heads at rtol 1e-5 / atol 1e-5;
+   detection tables at rtol 1e-5 / atol 1e-4 with equal masks and
+   indices, from the same heads and end to end), with CUDA-event times of
+   the forward and of decode + NMS, the wall time of one
+   ``get_detections_batch``, NMS's share and the forward's bound; (b) the
+   committed demo detector's AP@0.5 on 48 held-out frames (at least 0.75)
+   and its detections against its CPU run; (c) the host chain beside the
+   live K1 stage: ``SceneCamera`` -> ``start_tracker_batched`` (the demo
+   detector, K=4) -> ``Viewer.loop`` through ``SensorFusionDecider`` for
+   30 composited frames, each overlay's ``rect_conf`` offered to
+   ``focus_beam``; every dequeued camera frame processed, K1 launched, the
+   scene object found in 4 of 6 probed frames, ``focus_beam`` steered.
 
 The line before the last is a JSON record of the kernels; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -83,8 +99,10 @@ from __future__ import annotations
 import concurrent.futures
 import json
 import os
+import queue
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -130,6 +148,14 @@ MVDR_DRIFT = 0.05
 MVDR_BATCHES = 20
 AUDIO_LIMIT_MS = 3 * FULLRATE_BATCH * 256 / 48828 * 1e3
 FRAME_MS = 256 / 48828 * 1e3
+# phase 9: the detector's heads and tables on the card against the CPU
+# (tables: the JAX package's tests/test_vision.py:207), the AP gate of
+# tests/test_vision.py:189, the batch sizes, the composited frames
+VISION_HEAD_RTOL = VISION_HEAD_ATOL = 1e-5
+VISION_DET_RTOL, VISION_DET_ATOL = 1e-5, 1e-4
+VISION_AP_GATE = 0.75
+VISION_KS = (1, 4, 16)
+VISION_FRAMES = 30
 
 
 def zero_counts() -> None:
@@ -1018,8 +1044,6 @@ def phase_listen_live(card: str) -> int:
     frames reach the sink, and one received frame's audio matches the
     plain beam; then 20 maps of the stage through ``viz.Front.multi_loop``
     headless.  Returns K1's launches in the run."""
-    import queue
-
     from zybo_rt_sampler_image_detection_torch.apps import pipeline
     from zybo_rt_sampler_image_detection_torch.config import Config
     from zybo_rt_sampler_image_detection_torch.ingest.streamer import (
@@ -1433,6 +1457,317 @@ def phase_mvdr_live(card: str) -> dict:
     return out
 
 
+# -- phase 9: the vision path and the host sensor-fusion chain ---------------
+
+
+def _gate(got: torch.Tensor, ref: torch.Tensor, rtol: float,
+          atol: float) -> tuple:
+    """(max abs error, the worst element's share of its allowance
+    ``atol + rtol * |ref|``): the gate holds while the share is <= 1."""
+    got, ref = got.double().cpu(), ref.double().cpu()
+    err = (got - ref).abs()
+    return err.max().item(), (err / (atol + rtol * ref.abs())).max().item()
+
+
+def _tables_match(label: str, got, ref) -> str:
+    """The detection tables (rows, mask, class ids) of the card against
+    the CPU's: equal masks and indices, rows at the detection gate."""
+    rows, mask, ids = (t.cpu() for t in got)
+    r_rows, r_mask, r_ids = (t.cpu() for t in ref)
+    assert torch.equal(mask, r_mask), f"{label}: masks differ"
+    assert torch.equal(ids, r_ids), f"{label}: class ids differ"
+    err, share = _gate(rows, r_rows, VISION_DET_RTOL, VISION_DET_ATOL)
+    assert share <= 1.0, f"{label}: rows off by {err:.3e} ({share:.2f})"
+    return f"{int(mask.sum())} kept, rows max abs {err:.3e} ({share:.3f} " \
+           f"of the gate)"
+
+
+def _random_bn(model, seed: int) -> None:
+    """Random BatchNorm scales, biases and statistics (seeded on the
+    host), so that the check runs every term of the normalisation."""
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, torch.nn.BatchNorm2d):
+                n = m.num_features
+                m.weight.copy_(0.5 + torch.rand(n, generator=gen))
+                m.bias.copy_(0.1 * torch.randn(n, generator=gen))
+                m.running_mean.copy_(0.1 * torch.randn(n, generator=gen))
+                m.running_var.copy_(0.5 + torch.rand(n, generator=gen))
+
+
+def _yolo_bound(det, K: int) -> dict:
+    """The forward's bound, restated from the code: its operations
+    counted by ``FlopCounterMode`` on a one-frame CPU run (the convs,
+    2 x MACs) at FP32 on the CUDA cores (TF32 off), and its bytes (the
+    uint8 frames and the weights read once, the heads written once)."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from zybo_rt_sampler_image_detection_torch.models import yolo
+
+    c = det.cfg
+    m = yolo.TinyYolo(c).eval()
+    x = torch.zeros(1, c.input_size, c.input_size, 3)
+    with torch.no_grad(), FlopCounterMode(display=False) as fc:
+        heads = m(x)
+    flops = fc.get_total_flops() * K
+    nb = (K * c.input_size ** 2 * 3 + nbytes(*m.state_dict().values())
+          + K * nbytes(*heads))
+    return dict(gflop_per_frame=flops / K / 1e9, **bound(nb, flops))
+
+
+def _torch_ops(fn) -> tuple:
+    """(torch operations, those that are not views) that ``fn`` dispatches:
+    each of the latter is a kernel launch on the card."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Count(TorchDispatchMode):
+        n = k = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.n += 1
+            # a view returns an alias of an input it does not write
+            self.k += not any(
+                a.alias_info is not None and not a.alias_info.is_write
+                for a in func._schema.returns)
+            return func(*args, **(kwargs or {}))
+
+    with Count() as c:
+        fn()
+    return c.n, c.k
+
+
+def phase_vision_detector(card: str) -> dict:
+    """(a) The full-width detector (``YoloConfig()``: 416 px, width 1.0,
+    one class) from a seeded generator, with random BatchNorm statistics,
+    on the card against the same module on the CPU at K = 1, 4, 16:
+    heads at rtol 1e-5 / atol 1e-5; detection tables at rtol 1e-5 / atol
+    1e-4 with equal masks and indices, from the same heads and end to
+    end.  CUDA-event times of the forward and of decode + NMS, the wall
+    time of one ``get_detections_batch``, NMS's share, the bound."""
+    from zybo_rt_sampler_image_detection_torch.models import detect, yolo
+
+    cfg = yolo.YoloConfig()
+    cpu = detect.YoloDetector(cfg=cfg, seed=0, device="cpu")
+    _random_bn(cpu.model, seed=1)
+    gpu = detect.YoloDetector(cfg=cfg, seed=0, device="cuda")
+    gpu.model.load_state_dict(cpu.model.state_dict())
+    rng = np.random.default_rng(9)
+    frames = [(rng.random((240, 320, 3)) * 255).astype(np.uint8)
+              for _ in range(max(VISION_KS))]
+    out = {}
+    for K in VISION_KS:
+        imgs = np.stack([detect._resize_u8(f, (cfg.input_size,) * 2)
+                         for f in frames[:K]])
+        x_cpu = torch.from_numpy(imgs)
+        x_gpu = x_cpu.cuda()
+        h_cpu = cpu.forward(x_cpu)
+        h_gpu = gpu.forward(x_gpu)
+        torch.cuda.synchronize()
+        heads = [_gate(a, b, VISION_HEAD_RTOL, VISION_HEAD_ATOL)
+                 for a, b in zip(h_gpu, h_cpu)]
+        for err, share in heads:
+            assert share <= 1.0, f"K={K}: heads off by {err:.3e}"
+        ref = cpu.postprocess(h_cpu)
+        same = _tables_match(f"K={K} same heads",
+                             gpu.postprocess([h.cuda() for h in h_cpu]),
+                             ref)
+        e2e = _tables_match(f"K={K} end to end", gpu.program(x_gpu), ref)
+        iters = 20 if K < 16 else 10
+        fwd_ms = time_ms(lambda: gpu.forward(x_gpu), iters)
+        post_ms = time_ms(lambda: gpu.postprocess(h_gpu), iters)
+        prog_ms = time_ms(lambda: gpu.program(x_gpu), iters)
+        call_wall = call_ms(lambda: gpu.get_detections_batch(
+            frames[:K], pad_to=K), iters)
+        b = _yolo_bound(gpu, K)
+        n_ops, n_launch = _torch_ops(lambda: cpu.postprocess(h_cpu))
+        out[K] = dict(forward_ms=fwd_ms, nms_ms=post_ms, program_ms=prog_ms,
+                      call_ms=call_wall, nms_ops=n_launch, **b)
+        print(f"[vision] K={K}: heads vs CPU max abs "
+              f"{max(e for e, _ in heads):.3e} "
+              f"({max(s for _, s in heads):.3f} of the gate); tables from "
+              f"the same heads: {same}; end to end: {e2e} [{card}]")
+        print(f"[vision] K={K}: forward {fwd_ms:.4f} ms (bound "
+              f"{b['bound_ms']:.4f} ms, {b['bound_by']}; "
+              f"{b['gflop_per_frame']:.3f} GFLOP a frame; "
+              f"{b['bound_ms'] / fwd_ms:.1%} of it), decode + NMS "
+              f"{post_ms:.4f} ms ({post_ms / prog_ms:.1%} of the program "
+              f"{prog_ms:.4f} ms; {n_launch} of its {n_ops} torch ops are "
+              f"not views), one get_detections_batch {call_wall:.4f} ms "
+              f"wall (resize, upload, program, download; NMS "
+              f"{post_ms / call_wall:.1%} of it) [{card}]")
+    del gpu, cpu
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_vision_demo_detector(card: str) -> dict:
+    """(b) The committed demo detector on the card: AP@0.5 on the 48
+    held-out frames of ``synthetic_detection_batch(default_rng(999), 48,
+    size=64)`` at least 0.75, and its detections equal to its CPU run's
+    on the same frames within the detection gate."""
+    from zybo_rt_sampler_image_detection_torch.models import data, detect
+    from zybo_rt_sampler_image_detection_torch.models import eval as ev
+
+    gpu = detect.pretrained_demo_detector(device="cuda")
+    cpu = detect.pretrained_demo_detector(device="cpu")
+    imgs, boxes = data.synthetic_detection_batch(
+        np.random.default_rng(999), 48, size=64)
+    ap = ev.evaluate_detector(gpu, imgs, boxes)
+    ap_cpu = ev.evaluate_detector(cpu, imgs, boxes)
+    frames = [(im * 255).astype(np.uint8) for im in imgs]
+    worst = 0.0
+    for k in range(0, len(frames), 16):
+        got = gpu.get_detections_batch(frames[k:k + 16], include_class=True)
+        ref = cpu.get_detections_batch(frames[k:k + 16], include_class=True)
+        for g, r in zip(got, ref):
+            assert len(g) == len(r), "demo detector: detection counts differ"
+            if r:
+                _, share = _gate(torch.tensor(g), torch.tensor(r),
+                                 VISION_DET_RTOL, VISION_DET_ATOL)
+                worst = max(worst, share)
+    print(f"[vision-demo] committed detector (64 px, width 0.25): AP@0.5 "
+          f"{ap:.4f} on the card, {ap_cpu:.4f} on the CPU (gate "
+          f"{VISION_AP_GATE}); detections of 48 frames vs the CPU: "
+          f"{worst:.3f} of the gate [{card}]")
+    assert ap >= VISION_AP_GATE, f"AP@0.5 {ap:.3f}"
+    assert worst <= 1.0
+    return dict(ap=ap, ap_cpu=ap_cpu)
+
+
+class _CountingQueue(queue.Queue):
+    """A queue that counts the items the tracker stage takes from it (not
+    the ones the camera drops as the oldest)."""
+
+    taken = 0
+
+    def _get(self):
+        if threading.current_thread().name.startswith("tracker"):
+            self.taken += 1
+        return super()._get()
+
+
+def phase_vision_chain(card: str) -> dict:
+    """(c) The host chain end to end beside the live K1 heatmap stage: the
+    native emulator on loopback -> ``Pipeline(Config() at high)`` (the
+    policy picks K1) -> ``start_heatmap``; ``SceneCamera((240, 320))`` ->
+    ``start_camera`` -> ``start_tracker_batched(demo detector, batch=4)``;
+    ``Viewer.loop`` through ``SensorFusionDecider`` into an array display
+    for VISION_FRAMES composited frames, each tracker overlay's
+    ``rect_conf`` offered to ``decider.focus_beam`` (steering the
+    pipeline).  Every frame the tracker dequeued must be processed, K1
+    must launch, the detector must find the scene object in 4 of 6 probed
+    frames, and ``focus_beam`` must steer."""
+    from zybo_rt_sampler_image_detection_torch.apps import pipeline
+    from zybo_rt_sampler_image_detection_torch.config import Config
+    from zybo_rt_sampler_image_detection_torch.fusion.decider import (
+        SensorFusionDecider)
+    from zybo_rt_sampler_image_detection_torch.ingest.streamer import (
+        NativeStreamer)
+    from zybo_rt_sampler_image_detection_torch.models import data, detect
+    from zybo_rt_sampler_image_detection_torch.models.tracking import (
+        compute_iou)
+    from zybo_rt_sampler_image_detection_torch.ops import equiv_kernel as ek
+    from zybo_rt_sampler_image_detection_torch.utils import viz
+
+    det = detect.pretrained_demo_detector(device="cuda")
+    probe = data.SceneCamera((240, 320))
+    hits = 0
+    for _ in range(6):
+        _, frame = probe.read()
+        hits += any(compute_iou(d[:4], probe.last_box) > 0.3
+                    for d in det.get_detections(frame, conf_threshold=0.3))
+    print(f"[vision-chain] probe: the scene object found in {hits}/6 "
+          f"frames (IoU > 0.3 at conf 0.3)")
+    assert hits >= 4, f"scene object found in {hits}/6 frames"
+
+    cfg = Config().replace(matmul_precision="high")
+    tx, ty = 40, 20
+    sig = np.tile(_source_frame(cfg, tx, ty), (1, 8))
+    p = pipeline.Pipeline(cfg, "lerp", replay_mode=True, backend="native",
+                          device="cuda")
+    kind, _ = pipeline._select_power_backend(p.tables)
+    assert kind == "equiv_kernel", kind
+    decider = SensorFusionDecider((320, 240))      # camera pixels
+    steers = []
+
+    def steer(h, v):
+        steers.append(p.steer_cartesian_degree(h, v))
+
+    class FocusTap(queue.Queue):
+        """q_inference: every overlay's rect_conf goes to focus_beam as
+        the viewer takes it."""
+
+        def _get(self):
+            item = super()._get()
+            (x1, y1), (x2, y2), conf = item[2]
+            decider.focus_beam(steer, [x1, y1, x2, y2, conf])
+            return item
+
+    p.q_yolo = _CountingQueue(maxsize=2)
+    p.q_inference = FocusTap(maxsize=2)
+    disp = viz.ArrayDisplay(keep=VISION_FRAMES)
+    viewer = viz.Viewer(window=(640, 360), display=disp)
+    emu = NativeStreamer(cfg, n_arrays=cfg.active_arrays)
+    track_s = []
+
+    class Running:
+        deadline = time.time() + 90.0
+
+        @property
+        def value(self):
+            return time.time() < self.deadline
+
+    try:
+        emu.start(sig, rate=cfg.sample_rate)
+        zero_counts()
+        p.connect(timeout=30.0)
+        p.start_heatmap()
+        p.start_camera(data.SceneCamera((240, 320)), fps_limit=30.0)
+        tr = p.start_tracker_batched(det, batch=4)
+        step = tr.tracker.step_with_detections
+
+        def timed_step(*a, **kw):
+            t = time.perf_counter()
+            res = step(*a, **kw)
+            track_s.append(time.perf_counter() - t)
+            return res
+
+        tr.tracker.step_with_detections = timed_step
+        t0 = time.perf_counter()
+        viewer.loop(p.q_power, Running(), q_viewer=p.q_viewer,
+                    q_inference=p.q_inference, decider=decider,
+                    max_frames=VISION_FRAMES)
+        elapsed = time.perf_counter() - t0
+    finally:
+        p.stop()
+        launches = ek.equiv_power.launches
+        sent = emu.stop()
+    rep = p.report()
+    n = len(disp.frames)
+    trk = rep.get("tracker_batched", {})
+    print(f"[vision-chain] {n} composited frames in {elapsed:.2f} s "
+          f"({n / elapsed:.2f} frames/s); K1 launches {launches}; tracker "
+          f"dequeued {p.q_yolo.taken}, processed {tr.processed}; detector "
+          f"ms a batch of 4 p50 {trk.get('latency_p50_ms')} p95 "
+          f"{trk.get('latency_p95_ms')}; tracker host ms a frame "
+          f"{1e3 * np.mean(track_s):.3f}; focus_beam steered {len(steers)} "
+          f"times (last direction {steers[-1] if steers else None}); "
+          f"heatmap {json.dumps(rep.get('heatmap'))}; camera "
+          f"{json.dumps(rep.get('camera'))}; emulator sent {sent} packets "
+          f"[{card}]")
+    assert n == VISION_FRAMES, f"only {n} composited frames"
+    assert all(f.shape == (240, 320, 3) and f.dtype == np.uint8
+               for f in disp.frames)
+    assert tr.processed == p.q_yolo.taken > 0, "tracker skipped frames"
+    assert launches > 0, "K1 did not launch"
+    assert steers, "focus_beam never steered"
+    return dict(launches=launches, frames_per_s=n / elapsed,
+                detector_p50_ms=trk.get("latency_p50_ms"),
+                tracker_host_ms=1e3 * float(np.mean(track_s)),
+                steers=len(steers))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
@@ -1465,16 +1800,22 @@ def main() -> int:
     phase_mvdr_listen(card)
     phase_mvdr_live(card)
     t7 = time.perf_counter()
+    phase_vision_detector(card)
+    phase_vision_demo_detector(card)
+    vision = phase_vision_chain(card)
+    t8 = time.perf_counter()
     print(f"[time] build+K1 {t1 - t0:.1f} s, K5 {t2 - t1:.1f} s, K2-4 "
           f"{t3 - t2:.1f} s, live {t4 - t3:.1f} s, full rate+policy "
           f"{t5 - t4:.1f} s, listen {t6 - t5:.1f} s, fft/mvdr "
-          f"{t7 - t6:.1f} s")
+          f"{t7 - t6:.1f} s, vision {t8 - t7:.1f} s")
     # launches: the main path's run (phase 5 live / phase 6 full rate);
-    # listen_launches: the combined full-rate stage's run (phase 7)
+    # listen_launches: the combined full-rate stage's run (phase 7);
+    # vision_launches: the live stage beside the host fusion chain (9 c)
     kernels = [dict(name="equiv_power", route="cuda", source=KERNEL_SOURCE,
                     replaces=KERNEL_REPLACES, launches=live["equiv"],
                     listen_launches=listen["equiv"]["launches"],
-                    listen_live_launches=listen_live, **main_k)]
+                    listen_live_launches=listen_live,
+                    vision_launches=vision["launches"], **main_k)]
     kernels.append(dict(
         name="time_power", route="cuda", source=TIME_SOURCE,
         replaces=TIME_REPLACES[0], also_replaces=TIME_REPLACES[1:],

@@ -246,7 +246,9 @@ def test_demo_mimo_headless(capsys):
 
 
 def test_port_imports_without_jax():
-    """The port never imports jax, not even indirectly."""
+    """The port never imports jax, not even indirectly: the heatmap,
+    listening and FFT/MVDR modules, the vision models, fusion and the
+    demo."""
     code = ("import sys; sys.modules['jax'] = None; "
             "import zybo_rt_sampler_image_detection_torch as z; "
             "from zybo_rt_sampler_image_detection_torch.apps import "
@@ -254,6 +256,13 @@ def test_port_imports_without_jax():
             "from zybo_rt_sampler_image_detection_torch.ops import "
             "equiv_kernel, fused_kernel, _build, freq; "
             "from zybo_rt_sampler_image_detection_torch.apps import plot; "
+            "from zybo_rt_sampler_image_detection_torch import models, "
+            "fusion; "
+            "from zybo_rt_sampler_image_detection_torch.models import "
+            "detect, yolo, nms, sort, tracking, runner, eval, data; "
+            "from zybo_rt_sampler_image_detection_torch.apps import web; "
+            "from zybo_rt_sampler_image_detection_torch.ingest import "
+            "udptools; "
             "assert not any(m == 'jax' or m.startswith('jax.') "
             "for m, v in sys.modules.items() if v is not None); "
             "print('ok')")

@@ -1,5 +1,6 @@
 """CLI entry point — the ``mimo`` heatmap demo, the ``miso`` listening
-demo, the full-rate proof and the packet emulator.
+demo, the full-rate proof, the packet emulator and the sensor-fusion
+demo.
 
 Examples::
 
@@ -12,14 +13,17 @@ Examples::
     python -m zybo_rt_sampler_image_detection_torch.apps.demo fullrate --seconds 10 --audio null
     python -m zybo_rt_sampler_image_detection_torch.apps.demo fullrate --seconds 10 --algorithm mvdr --audio null --beam mvdr
     python -m zybo_rt_sampler_image_detection_torch.apps.demo fullrate --device cpu --preset tiny --seconds 3
+    python -m zybo_rt_sampler_image_detection_torch.apps.demo sensorfusion --replay --camera -2 --out ''
 
 Ported so far: ``mimo`` (the cv2 heatmap window, or stats when
 ``--headless``; every algorithm, ``fft`` and ``mvdr`` included), ``miso``
 (live or ``--fullrate`` gapless listening; ``--beam mvdr`` always takes
 the batched stage), ``fullrate`` (heatmaps, ``--audio`` heatmaps and the
 beam from one transfer, ``--audio-only``) and ``emulate`` (parity with
-``PC/demo.py`` mimo/miso and ``udp/streamer.c``).  ``record``,
-``sensorfusion`` and ``web`` are later slices.
+``PC/demo.py`` mimo/miso and ``udp/streamer.c``), and ``sensorfusion``
+on the host chain (``--composite host``: camera, YOLO tracker, heatmap
+stage, ``Viewer`` and ``SensorFusionDecider``).  ``record``, ``web`` and
+the device and fused compositors are later slices.
 """
 
 from __future__ import annotations
@@ -365,6 +369,135 @@ def cmd_fullrate(args):
     return 0 if ok else 1
 
 
+# the sensorfusion arguments of slices still to come: (flag, whether the
+# arguments set it, what it needs)
+_LATER_SENSORFUSION = (
+    ("--composite device", lambda a: a.composite == "device",
+     "the device compositor (fusion/composite.py DeviceCompositor and "
+     "DeviceViewer, ROADMAP queue 1 item 12)"),
+    ("--composite fused", lambda a: a.composite == "fused",
+     "the fused display stage (apps/fused.py FusedSensorStage, ROADMAP "
+     "queue 1 item 13)"),
+    ("--listen", lambda a: a.listen != "off",
+     "the fused display stage's embedded listening (ROADMAP queue 1 item "
+     "13)"),
+    ("--heatmap-rate", lambda a: a.heatmap_rate is not None,
+     "the batched stage's max_rate throttle (ROADMAP queue 1 item 13)"),
+    ("--mic-batch", lambda a: a.mic_batch is not None,
+     "the fused display stage (ROADMAP queue 1 item 13)"),
+    ("--composite-batch", lambda a: a.composite_batch is not None,
+     "a device compositor (ROADMAP queue 1 items 12-13)"),
+    ("--transfer", lambda a: a.transfer is not None,
+     "the fused display stage's packed upload (ROADMAP queue 1 item 13)"),
+    ("--display-transport", lambda a: a.display_transport is not None,
+     "the fused display stage's video transports (ROADMAP queue 1 item "
+     "13)"),
+    ("--pretrain", lambda a: a.pretrain,
+     "the port's training slice (models/train.py, ROADMAP queue 1 item "
+     "11); --camera -2 without --weights loads the committed demo "
+     "detector"),
+)
+
+
+def cmd_sensorfusion(args):
+    """Sensor-fusion demo (``main.pyx:669-736`` mimo +
+    ``record_sensorfusion``) on the host chain (``--composite host``):
+    camera -> YOLO tracker, receiver -> heatmap, composited by
+    ``utils.viz.Viewer`` through ``SensorFusionDecider``; the composited
+    frames go to an array display and, with ``--out``, an mp4 (cv2).
+
+    ``--heatmap-batch`` > 1 runs the full-rate heatmap stage publishing
+    every map to the display queue (1 = the live single-frame stage);
+    ``--tracker-batch`` > 1 runs one YOLO device program per K camera
+    frames.  ``--camera -2`` (the detectable moving-object scene) without
+    ``--weights`` takes the committed demo detector."""
+    for flag, is_set, needs in _LATER_SENSORFUSION:
+        if is_set(args):
+            raise SystemExit(f"sensorfusion {flag} needs {needs}, which "
+                             f"the port does not have yet")
+    from ..models.detect import YoloDetector, pretrained_demo_detector
+    from ..models.yolo import YoloConfig
+    from ..utils import imaging
+    from ..utils.viz import ArrayDisplay, Viewer
+    from .pipeline import put_drop_oldest
+    from .web import SyntheticCamera
+
+    if args.out and not imaging._HAS_CV2:
+        raise SystemExit(f"--out {args.out} needs cv2 to write the mp4; "
+                         f"pass --out '' to skip it")
+    p = _make_pipeline(args)
+    try:
+        p.connect()
+        if args.heatmap_batch > 1:
+            def all_maps_sink(powers, first_seq):
+                for j, pw in enumerate(powers):
+                    put_drop_oldest(p.q_power, (pw, first_seq + j))
+
+            p.start_heatmap_batched(batch=args.heatmap_batch,
+                                    sink=all_maps_sink)
+        else:
+            p.start_heatmap()
+        if args.camera == -2:
+            from ..models.data import SceneCamera
+            # one Lissajous cycle pre-rendered: read() is a list index
+            cam = SceneCamera((240, 320), prerender=1260)
+        elif args.camera < 0:
+            cam = SyntheticCamera((240, 320))
+        else:
+            from ..utils.viz import _CvCapture
+            cam = _CvCapture(args.camera)
+        p.start_camera(cam, fps_limit=args.camera_fps)
+        if args.camera == -2 and not args.weights:
+            det = pretrained_demo_detector(device=p.device)
+        else:
+            det = YoloDetector(
+                model_path=args.weights, device=p.device,
+                cfg=YoloConfig(input_size=args.detector_size,
+                               width_mult=args.detector_width,
+                               num_classes=args.detector_classes))
+        tkw = (dict(max_age=args.track_coast, report_coasted=True)
+               if args.track_coast else {})
+        if args.tracker_batch > 1:
+            p.start_tracker_batched(det, batch=args.tracker_batch, **tkw)
+        else:
+            p.start_tracker(det, **tkw)
+        frames_wanted = args.frames or 30
+        disp = ArrayDisplay(keep=frames_wanted)
+        viewer = Viewer(cb=lambda h, v: p.steer_cartesian_degree(h, v),
+                        window=(args.width, args.height), display=disp)
+
+        class Running:
+            # a wall-clock deadline: if a producer thread dies the queues
+            # stop filling, and the demo stops and reports what it
+            # composited instead of waiting forever
+            deadline = time.time() + max(60.0, frames_wanted * 5.0)
+
+            @property
+            def value(self):
+                return time.time() < self.deadline
+
+        t0 = time.time()
+        viewer.loop(p.q_power, Running(), q_viewer=p.q_viewer,
+                    q_inference=p.q_inference, max_frames=frames_wanted)
+        elapsed = time.time() - t0
+    finally:
+        p.stop()
+    n = len(disp.frames)
+    print(f"fused rate: {n / elapsed:.1f} fps over {n} composited frames "
+          f"({elapsed:.1f}s)")
+    if args.out and n:
+        import cv2
+        h, w = disp.frames[0].shape[:2]
+        vw = cv2.VideoWriter(args.out, cv2.VideoWriter_fourcc(*"mp4v"),
+                             15, (w, h))
+        for f in disp.frames:
+            vw.write(f)
+        vw.release()
+        print(f"wrote {n} fused frames -> {args.out}")
+    print("metrics:", p.report())
+    return 0 if n == frames_wanted else 1
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(prog="zybo-rt-torch")
     sub = ap.add_subparsers(dest="cmd", required=True)
@@ -434,6 +567,57 @@ def main(argv=None):
                         "traffic at ~1e-3 relative error (display-grade "
                         "opt-in)")
     p.set_defaults(fn=cmd_fullrate, replay=True)
+
+    p = sub.add_parser("sensorfusion",
+                       help="camera + YOLO + heatmap fusion demo on the "
+                            "host chain -> mp4")
+    _add_common(p)
+    p.add_argument("--camera", type=int, default=-1,
+                   help="camera index (-1 = synthetic gradients, -2 = "
+                        "detectable moving-object scene)")
+    p.add_argument("--composite", default="host",
+                   choices=["host", "device", "fused"],
+                   help="display-chain backend: 'host' = the "
+                        "reference-shaped chain (Viewer + "
+                        "SensorFusionDecider); 'device' and 'fused' are "
+                        "later slices of the port")
+    p.add_argument("--tracker-batch", type=int, default=4,
+                   help="camera frames per YOLO device program (1 = the "
+                        "single-frame reference-parity loop)")
+    p.add_argument("--track-coast", type=int, default=0,
+                   help="report Kalman-predicted boxes for tracks missed "
+                        "up to N frames (0 = reference matched-only "
+                        "reporting)")
+    p.add_argument("--heatmap-batch", type=int, default=16,
+                   help="frames per heatmap device program, all maps "
+                        "published (1 = single-frame reference loop)")
+    p.add_argument("--camera-fps", type=float, default=60.0,
+                   help="camera frame-rate cap")
+    p.add_argument("--weights", default=None,
+                   help="detector weights (.pkl of either package, or "
+                        ".npz)")
+    p.add_argument("--detector-classes", type=int, default=1,
+                   help="detector class count")
+    p.add_argument("--detector-size", type=int, default=224,
+                   help="detector input size (px)")
+    p.add_argument("--detector-width", type=float, default=0.5,
+                   help="detector width multiplier")
+    p.add_argument("--out", default="sensorfusion.mp4",
+                   help="mp4 of the composited frames (needs cv2; '' = "
+                        "none)")
+    p.add_argument("--width", type=int, default=640)
+    p.add_argument("--height", type=int, default=360)
+    # arguments of later slices: refused with the ROADMAP item they need
+    p.add_argument("--listen", default="off",
+                   choices=["off", "time", "mvdr"])
+    p.add_argument("--heatmap-rate", type=float, default=None)
+    p.add_argument("--mic-batch", type=int, default=None)
+    p.add_argument("--composite-batch", type=int, default=None)
+    p.add_argument("--transfer", default=None, choices=["f32", "f16"])
+    p.add_argument("--display-transport", default=None,
+                   choices=["yuv420", "rgb"])
+    p.add_argument("--pretrain", type=int, default=0)
+    p.set_defaults(fn=cmd_sensorfusion)
 
     args = ap.parse_args(argv)
     return args.fn(args)

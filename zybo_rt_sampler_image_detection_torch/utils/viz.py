@@ -10,16 +10,16 @@ replaced by one vectorized NumPy LUT pass:
 * FFT variant                        — ``visual.py:190-221``
 * Gaussian power-center detector     — ``visual.py:295-322``
 * heatmap + detection box            — ``visual.py:227-293``
-* ``Front`` loop                     — ``visual.py:327-386`` (cv2 UI when
+* ``Front`` / ``Viewer`` loops       — ``visual.py:327-493`` (cv2 UI when
   available, injectable camera/display for headless runs)
 
-A copy of the JAX package's ``utils/viz.py`` (NumPy only) without
-``Viewer``, which needs the fusion decider (ROADMAP queue 1 item 12).
+A copy of the JAX package's ``utils/viz.py`` (NumPy only); ``Viewer``
+composites through the port's ``fusion.decider``.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Callable, Optional, Tuple
 
 import numpy as np
 
@@ -240,6 +240,88 @@ class Front:
     def _running(self):
         v = getattr(self.running, "value", self.running)
         return bool(v)
+
+
+class Viewer:
+    """Heatmap + YOLO + fusion viewer (visual.py:389-493)."""
+
+    def __init__(self, cb: Optional[Callable] = None, window=(1920, 1080),
+                 display=None, heatmap_color: bool = False):
+        self.cb = cb
+        self.window = window
+        self.display = display if display is not None else _CvDisplay(
+            "zybo-rt-torch", self._mouse)
+        self.heatmap_color = heatmap_color
+
+    def _mouse(self, x, y):
+        from ..config import DEFAULT
+        max_x = DEFAULT.max_angle
+        max_y = DEFAULT.max_angle / DEFAULT.aspect_ratio
+        horizontal = (x / self.window[0]) * max_x * 2 - max_x
+        vertical = (y / self.window[1]) * max_y * 2 - max_y
+        if self.cb is not None:
+            self.cb(horizontal, vertical)
+
+    def loop(self, q_power, running, q_viewer=None, q_inference=None,
+             decider=None, max_frames: Optional[int] = None):
+        """One display iteration per (power, camera, yolo) triple
+        (visual.py:405-484)."""
+        import queue as _queue
+
+        from ..fusion.decider import SensorFusionDecider
+        if decider is None:
+            decider = SensorFusionDecider((640, 360))
+        prev = np.zeros((self.window[1], self.window[0], 3), np.uint8)
+        n = 0
+        # items already dequeued are CARRIED across timeouts — the three
+        # gets are not atomic, and dropping a fetched (yolo, power) pair
+        # because the camera queue timed out would silently lose frames
+        # every iteration while one producer stalls
+        pend_yolo = pend_power = pend_frame = None
+        while self._running(running) and (max_frames is None
+                                          or n < max_frames):
+            try:
+                if q_inference is not None and pend_yolo is None:
+                    pend_yolo = q_inference.get(timeout=0.5)
+                if pend_power is None:
+                    pend_power = q_power.get(timeout=0.5)
+                if q_viewer is not None and pend_frame is None:
+                    pend_frame = q_viewer.get(timeout=0.5)
+            except _queue.Empty:
+                continue        # keep what we have; retry the missing queue
+            yolo_no, yolo_frame, conf = (pend_yolo if pend_yolo is not None
+                                         else (None, None, 0.0))
+            output, power_no = pend_power
+            frame_no, frame = (pend_frame if pend_frame is not None
+                               else (None, None))
+            pend_yolo = pend_power = pend_frame = None
+            for q in (q_inference, q_power, q_viewer):
+                if q is not None and hasattr(q, "task_done"):
+                    try:
+                        q.task_done()
+                    except Exception:
+                        pass
+            if frame is None:
+                frame = np.zeros((self.window[1], self.window[0], 3),
+                                 np.uint8)
+            frame = imaging.flip_horizontal(frame)
+            frame = imaging.resize(frame, self.window)
+            power_box, res1, should = calculate_heatmap_with_detection(
+                output, window=self.window)
+            res = imaging.add_weighted(prev, 0.5, res1, 0.5)
+            prev = res
+            image = imaging.add_weighted(frame, 0.9, res, 0.9) \
+                if self.heatmap_color else frame
+            yolo_img = np.zeros_like(image) if yolo_frame is None else \
+                imaging.resize(imaging.gray_to_bgr(yolo_frame), self.window)
+            combined = decider.create_image(image, yolo_img, power_box, res)
+            combined = imaging.gray_to_bgr(combined)
+            self.display.show(combined)
+            n += 1
+
+    @staticmethod
+    def _running(running):
+        return bool(getattr(running, "value", running))
 
 
 class _CvCapture:                                     # pragma: no cover

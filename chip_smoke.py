@@ -89,6 +89,28 @@ Phases (any failure raises, so the exit code is non-zero):
    30 composited frames, each overlay's ``rect_conf`` offered to
    ``focus_beam``; every dequeued camera frame processed, K1 launched, the
    scene object found in 4 of 6 probed frames, ``focus_beam`` steered.
+10. The device compositor and the fused stage (``fusion/composite.py``,
+   ``apps/fused.py``; plain torch, no kernel of their own; K1 inside):
+   (a) ``DeviceCompositor`` at ``Config()``'s grid, 240x320 cameras, a
+   640x360 window, 8 track boxes, K=16, on the card against its CPU run
+   (the host chain's gates, power centers within 1 px), with its device
+   ms a batch beside its bytes bound; (b) ``FusedSensorStage`` (K=16,
+   192 channels, the committed demo detector, ``Config()`` lerp at
+   ``high``: K1) on a pre-rendered ``SceneCamera`` from the native
+   emulator, with ``display_transport`` rgb and then yuv420, each for
+   192 composited frames: frames/s, ``phase_p50_ms``, K1 launches, a
+   recorded batch's composites equal to ``DeviceCompositor`` on the
+   stage's own powers and its detections against ``det.program`` on the
+   same resized input (atol 1e-5, equal masks and classes), and the
+   device ms a batch of the program and of its power / detector /
+   composite parts; (c) one batch with the full-width detector
+   (``YoloConfig()``, seeded, random BatchNorm statistics); (d) 4 s of
+   ``listen="time"`` and then ``"mvdr"`` (mic batch 64) at line rate: 0
+   underrun frames, audio frames equal to the mic frames beamed, the
+   audio e2e p50/p95, a recorded batch's beams against ``miso_beam`` /
+   ``mvdr_listen_step`` run apart (rtol 1e-4 / atol 1e-7); (e) ``demo
+   sensorfusion --replay --frames 30 --out ''`` (the fused default) and
+   ``--composite device``, each exiting 0.
 
 The line before the last is a JSON record of the kernels; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -1767,6 +1789,486 @@ def phase_vision_chain(card: str) -> dict:
                 tracker_host_ms=1e3 * float(np.mean(track_s)),
                 steers=len(steers))
 
+# phase 10: the fused stage's batch, camera, window and composited frames
+# of (b), the mic batch of (d), the detection gate against det.program on
+# the same resized input (the JAX package's tests/test_fused.py:93), the
+# host chain's gates of the compositor (tests/test_composite.py:31-36)
+FUSED_BATCH = 16
+FUSED_CAM = (240, 320)
+FUSED_WINDOW = (640, 360)
+FUSED_FRAMES = 192
+FUSED_MIC_BATCH = 64
+FUSED_DET_ATOL = 1e-5
+COMPOSITE_MAX, COMPOSITE_MEAN, COMPOSITE_FRAC2 = 5, 0.6, 0.02
+
+
+def _bump_powers(cfg, k: int, seed: int) -> np.ndarray:
+    """(k, X, Y) smooth Gaussian-bump maps with clear peaks (the JAX
+    package's tests/test_composite.py:_powers at ``Config()``'s grid)."""
+    rng = np.random.default_rng(seed)
+    X, Y = cfg.max_res_x, cfg.max_res_y
+    xs, ys = np.arange(X)[:, None], np.arange(Y)[None, :]
+    out = []
+    for _ in range(k):
+        cx, cy = rng.uniform(2, X - 3), rng.uniform(2, Y - 3)
+        bump = rng.uniform(0.5, 2.0) * np.exp(
+            -((xs - cx) ** 2 + (ys - cy) ** 2) / rng.uniform(4.0, 16.0))
+        out.append((bump + rng.uniform(0, 1e-2, (X, Y))) * 1e-4)
+    return np.asarray(out, np.float32)
+
+
+def _raster_mask(sx: int, sy: int, window, ratio: float = 0.1):
+    """Pixels the power box and circle can touch at (sx, sy), dilated by
+    1, in display coordinates (tests/test_composite.py:_box_raster_mask):
+    a one-pixel center shift flips those pixels 0 <-> 255."""
+    Ww, Hw = window
+    bw, bh = int(Ww * ratio), int(Hw * ratio)
+    x1, y1 = max(0, sx - bw // 2), max(0, sy - bh // 2)
+    x2, y2 = min(Ww, sx + bw // 2), min(Hw, sy + bh // 2)
+    m = np.zeros((Hw, Ww), bool)
+    for (ax1, ay1, ax2, ay2) in [(x1, y1, x2, y1), (x1, y2, x2, y2),
+                                 (x1, y1, x1, y2), (x2, y1, x2, y2)]:
+        m[max(0, ay1 - 4):ay2 + 5, max(0, ax1 - 4):ax2 + 5] = True
+    m[max(0, sy - 7):sy + 8, max(0, sx - 7):sx + 8] = True
+    return m[:, ::-1]
+
+
+def phase_composite(card: str) -> dict:
+    """10 (a): the compositor on the card against the same compositor on
+    the CPU (the fallback convention, which the card's host runs), at
+    ``Config()``'s grid, 240x320 cameras, a 640x360 window, 8 track boxes
+    and K=16; the device ms a batch (CUDA events) beside its bytes
+    bound."""
+    from zybo_rt_sampler_image_detection_torch.config import Config
+    from zybo_rt_sampler_image_detection_torch.fusion.composite import (
+        DeviceCompositor)
+
+    cfg, K = Config(), FUSED_BATCH
+    grid = (cfg.max_res_x, cfg.max_res_y)
+    rng = np.random.default_rng(10)
+    powers = _bump_powers(cfg, K, 10)
+    cams = rng.integers(30, 230, (K,) + FUSED_CAM + (3,)).astype(np.uint8)
+    boxes = np.full((K, 8, 5), -100.0, np.float32)
+    boxes[:, 0] = [40, 30, 200, 150, 1]
+    boxes[:, 1] = [100, 120, 300, 230, 2]
+    kw = dict(window=FUSED_WINDOW, yolo_shape=FUSED_CAM, max_tracks=8,
+              cv2_convention=False)
+    dev = DeviceCompositor(grid, FUSED_CAM, device="cuda", **kw)
+    cpu = DeviceCompositor(grid, FUSED_CAM, device="cpu", **kw)
+    got, prev, meta = dev(powers, cams, boxes, dev.init_prev())
+    ref, prev_ref, meta_ref = cpu(powers, cams, boxes, cpu.init_prev())
+    got, ref = got.cpu().numpy(), ref.numpy()
+    m, mr = DeviceCompositor.meta_dict(meta), DeviceCompositor.meta_dict(
+        meta_ref)
+    same_center = (m["sx"] == mr["sx"]) & (m["sy"] == mr["sy"])
+    near = (np.abs(m["sx"] - mr["sx"]) <= 1) & (np.abs(m["sy"] - mr["sy"])
+                                                <= 1)
+    diff = np.abs(got.astype(np.int32) - ref.astype(np.int32))
+    for i in range(K):
+        if not same_center[i]:
+            ex = _raster_mask(int(mr["sx"][i]), int(mr["sy"][i]),
+                              FUSED_WINDOW) | _raster_mask(
+                int(m["sx"][i]), int(m["sy"][i]), FUSED_WINDOW)
+            diff[i][ex] = 0
+    equal = float((diff == 0).mean())
+    print(f"[composite] K={K} {FUSED_CAM} -> {FUSED_WINDOW}, grid {grid}, "
+          f"8 boxes: card vs CPU max |diff| {diff.max()} mean "
+          f"{diff.mean():.5f} (gates {COMPOSITE_MAX} / {COMPOSITE_MEAN}), "
+          f"{equal:.5f} of bytes equal; sx/sy equal on "
+          f"{int(same_center.sum())}/{K} frames, within 1 px on "
+          f"{int(near.sum())}/{K}; light max |diff| "
+          f"{np.abs(m['light'] - mr['light']).max():.3e}, conf "
+          f"{np.abs(m['conf'] - mr['conf']).max():.3e}; EMA carry equal "
+          f"{bool(np.array_equal(prev.cpu().numpy(), prev_ref.numpy()))}")
+    assert near.all(), "power centers differ by more than 1 px"
+    assert diff.max() <= COMPOSITE_MAX and diff.mean() <= COMPOSITE_MEAN
+    assert (diff > 2).mean() <= COMPOSITE_FRAC2
+    p_d = torch.from_numpy(powers).cuda()
+    c_d = torch.from_numpy(cams).cuda()
+    b_d = torch.from_numpy(boxes).cuda()
+    prev0 = dev.init_prev()
+    ms = time_ms(lambda: dev._run(p_d, c_d, b_d, prev0, K), 10)
+    wall = call_ms(lambda: dev._run(p_d, c_d, b_d, prev0, K), 5)
+    Ww, Hw = FUSED_WINDOW
+    nb = nbytes(p_d, c_d, b_d, prev0) + K * Hw * Ww * 3 + Hw * Ww * 3 \
+        + K * 5 * 4
+    bd = bound(nb, 0.0)
+    print(f"[composite] device program {ms:.4f} ms a batch of {K} on CUDA "
+          f"events ({wall:.4f} ms wall a call) | bound {bd['bound_ms']:.4f} "
+          f"ms ({bd['bound_by']}: {nb / 1e6:.2f} MB) [{card}]")
+    return dict(ms=ms, wall_ms=wall, **bd)
+
+
+def _fused_pipeline():
+    """``Config()`` lerp at ``high`` on the card (the policy picks K1),
+    native ingest on loopback."""
+    from zybo_rt_sampler_image_detection_torch.apps import pipeline
+    from zybo_rt_sampler_image_detection_torch.config import Config
+
+    cfg = Config().replace(matmul_precision="high")
+    p = pipeline.Pipeline(cfg, "lerp", replay_mode=True, backend="native",
+                          device="cuda")
+    kind, _ = pipeline._select_power_backend(p.tables)
+    assert kind == "equiv_kernel", kind
+    return cfg, p
+
+
+def _fused_stage(p, det, transport: str, listen=None, sink=None,
+                 q_cam=None):
+    """A FusedSensorStage at the demo's shapes: K=16, 192 channels, a
+    640x360 window, 8 track boxes, 240x320 cameras."""
+    from zybo_rt_sampler_image_detection_torch.apps.fused import (
+        FusedSensorStage)
+    from zybo_rt_sampler_image_detection_torch.fusion.composite import (
+        DeviceCompositor)
+    from zybo_rt_sampler_image_detection_torch.utils import viz
+
+    cfg = p.cfg
+    comp = DeviceCompositor((cfg.max_res_x, cfg.max_res_y), FUSED_CAM,
+                            window=FUSED_WINDOW, yolo_shape=FUSED_CAM,
+                            max_tracks=8, device="cuda")
+    return FusedSensorStage(
+        p.receiver, p.tables, comp, det,
+        q_cam if q_cam is not None else p.q_yolo,
+        viz.ArrayDisplay(keep=2), p.metrics, batch=FUSED_BATCH,
+        channels=FULLRATE_CHANNELS, display_transport=transport,
+        steer_cb=lambda h, v: p.steer_cartesian_degree(h, v),
+        listen=listen, audio_sink=sink,
+        mic_batch=FUSED_MIC_BATCH if listen else 0)
+
+
+def _record_launch(stage, which: int) -> dict:
+    """Wrap ``stage._launch``: keep the inputs (and the MVDR state before
+    it) of launch number ``which`` after the wrap."""
+    rec = {"n": 0}
+    launch = stage._launch
+
+    def wrapped(mic, cams, n):
+        rec["n"] += 1
+        if rec["n"] == which:
+            with stage._dir_lock:
+                d = stage._direction
+            rec.update(mic=np.array(mic), cams=np.array(cams), k=n,
+                       boxes=stage._boxes.copy(), d=d,
+                       state=(stage._mvdr.state["p"] if stage._mvdr
+                              else None))
+        return launch(mic, cams, n)
+
+    stage._launch = wrapped
+    return rec
+
+
+def _drive_fused(cfg, p, stage, seconds: float, frames: int = 0,
+                 cam_fps: float = 1000.0):
+    """The native emulator at line rate and a pre-rendered SceneCamera
+    (240x320) -> ``stage`` until ``frames`` frames are composited (or
+    ``seconds`` pass, with ``frames`` 0), every launch count set to 0
+    just before; returns (K1 launches, seconds, packets sent)."""
+    from zybo_rt_sampler_image_detection_torch.ingest.streamer import (
+        NativeStreamer)
+    from zybo_rt_sampler_image_detection_torch.models import data
+    from zybo_rt_sampler_image_detection_torch.ops import equiv_kernel as ek
+
+    sig = np.tile(_source_frame(cfg, 40, 20), (1, 8))
+    emu = NativeStreamer(cfg, n_arrays=cfg.active_arrays)
+    try:
+        emu.start(sig, rate=cfg.sample_rate)
+        p.connect(timeout=30.0)
+        p.start_camera(data.SceneCamera(FUSED_CAM, prerender=128),
+                       fps_limit=cam_fps)
+        zero_counts()
+        t0 = time.perf_counter()
+        p.run_stage(stage)
+        while stage.error is None and time.perf_counter() - t0 < 60.0:
+            if (stage.frames >= frames if frames
+                    else time.perf_counter() - t0 >= seconds):
+                break
+            time.sleep(0.02)
+        elapsed = time.perf_counter() - t0
+    finally:
+        p.stop()
+        launches = ek.equiv_power.launches
+        sent = emu.stop()
+    assert stage.error is None, f"the fused stage failed: {stage.error!r}"
+    return launches, elapsed, sent
+
+
+def _fused_parity(label: str, stage, rec, card: str) -> dict:
+    """Launch the recorded batch again (count K, a fresh EMA carry): its
+    composites against ``DeviceCompositor`` fed the stage's own powers
+    (equal bytes), its detections against ``det.program`` on the same
+    resized input; then the device ms a batch of the whole program, the
+    power program, the detector and the compositor (CUDA events)."""
+    from zybo_rt_sampler_image_detection_torch.apps import fused
+
+    K = FUSED_BATCH
+    Hc, Wc = FUSED_CAM
+    Ww, Hw = FUSED_WINDOW
+    stage._prev, stage._boxes = None, rec["boxes"]
+    seen = {}
+    run = stage._run
+
+    def keep(packed, d, count):
+        seen["packed"] = packed
+        return run(packed, d, count)
+
+    stage._run = keep
+    host, done = stage._launch(rec["mic"], rec["cams"], K)
+    stage._run = run
+    done.synchronize()
+    comps, dets, mask, cls_ids, metas, _ = stage._unpack(host.numpy())
+    x = torch.from_numpy(rec["mic"]).cuda()
+    powers = stage._power(x[-K:])
+    _mic, boxes, cams = stage._split(seen["packed"])
+    yolos = boxes.expand(K, *boxes.shape)
+    ref, _, ref_meta = stage.comp(powers, cams, yolos,
+                                  stage.comp.init_prev(), count=K)
+    if stage.display_transport == "yuv420":
+        ref = fused._i420_to_bgr(fused._bgr_to_i420(ref).cpu().numpy(), Hw,
+                                 Ww)
+    else:
+        ref = ref.cpu().numpy()
+    imgs = stage.detector_input(cams)
+    rd, rm, rc = (t.cpu().numpy() for t in stage.detector.program(imgs))
+    det_err = float(np.abs(dets - rd).max())
+    print(f"[fused] {label}: a recorded batch again: composites vs "
+          f"DeviceCompositor on the stage's own powers equal "
+          f"{bool(np.array_equal(comps, ref))}, meta max |diff| "
+          f"{np.abs(metas - ref_meta.cpu().numpy()).max():.3e}; detections "
+          f"vs det.program on the same resized input max abs {det_err:.3e} "
+          f"(atol {FUSED_DET_ATOL:g}), masks equal "
+          f"{bool(np.array_equal(mask, rm))}, classes equal "
+          f"{bool(np.array_equal(cls_ids, rc))}; {int(mask.sum())} kept")
+    assert np.array_equal(comps, ref), f"{label}: composites differ"
+    assert det_err <= FUSED_DET_ATOL and np.array_equal(mask, rm)
+    assert np.array_equal(cls_ids, rc)
+    packed, d = seen["packed"], rec["d"]
+    prev0 = stage.comp.init_prev()
+
+    def whole():
+        stage._prev = prev0
+        return stage._run(packed, d, K)
+
+    t = dict(whole_ms=time_ms(whole, 5),
+             power_ms=time_ms(lambda: stage._power(x[-K:]), 10),
+             detector_ms=time_ms(lambda: stage.detector.program(imgs), 5),
+             composite_ms=time_ms(lambda: stage.comp._run(
+                 powers, cams, yolos, prev0, K), 5))
+    t["whole_wall_ms"] = call_ms(whole, 3)
+    print(f"[fused] {label}: device ms a batch of {K} (CUDA events): whole "
+          f"program {t['whole_ms']:.3f} ({t['whole_wall_ms']:.3f} wall a "
+          f"call), power {t['power_ms']:.3f}, detector "
+          f"{t['detector_ms']:.3f}, composite {t['composite_ms']:.3f} "
+          f"[{card}]")
+    return t
+
+
+def phase_fused(card: str) -> dict:
+    """10 (b): FusedSensorStage at K=16 on a pre-rendered SceneCamera
+    (240x320, unthrottled) with the committed demo detector, from the
+    native emulator at line rate (``Config()`` lerp at ``high``: the
+    policy's K1), with ``display_transport`` rgb and then yuv420, each
+    until FUSED_FRAMES frames are composited; then the parity of a
+    recorded batch and the device ms a batch."""
+    from zybo_rt_sampler_image_detection_torch.models import detect
+
+    out = {}
+    for transport in ("rgb", "yuv420"):
+        cfg, p = _fused_pipeline()
+        p.q_yolo = queue.Queue(maxsize=2 * FUSED_BATCH)
+        det = detect.pretrained_demo_detector(device="cuda")
+        stage = _fused_stage(p, det, transport)
+        t0 = time.perf_counter()
+        stage.warmup()
+        warm = time.perf_counter() - t0
+        rec = _record_launch(stage, 3)
+        launches, elapsed, sent = _drive_fused(cfg, p, stage, 0.0,
+                                               frames=FUSED_FRAMES)
+        rep = stage.report()
+        cam = p.report().get("camera", {})
+        n = stage.frames
+        print(f"[fused] {transport}: {n} composited frames in "
+              f"{elapsed:.2f} s ({n / elapsed:.2f} frames/s; camera "
+              f"{cam.get('rate_hz')} frames/s); K1 launches {launches}; "
+              f"warm-up {warm:.2f} s; latency p50 {rep['latency_p50_ms']} "
+              f"p95 {rep['latency_p95_ms']} ms; phase_p50_ms "
+              f"{json.dumps(rep['phase_p50_ms'])}; skipped {stage.skipped}; "
+              f"emulator sent {sent} packets [{card}]")
+        assert n >= FUSED_FRAMES, f"only {n} composited frames"
+        assert launches > 0, "K1 did not launch inside the fused stage"
+        t = _fused_parity(transport, stage, rec, card)
+        out[transport] = dict(frames_per_s=n / elapsed, launches=launches,
+                              phase_p50_ms=rep["phase_p50_ms"], **t)
+        if transport == "rgb":
+            out["rec"], out["p"] = rec, p
+        else:
+            del p
+        del stage, det
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_fused_wide(card: str, fused_out: dict) -> dict:
+    """10 (c): one batch of the stage with the full-width detector
+    (``YoloConfig()``: 416 px, width 1.0, seeded weights, random
+    BatchNorm statistics) on the recorded batch of (b)."""
+    from zybo_rt_sampler_image_detection_torch.models.detect import (
+        YoloDetector)
+    from zybo_rt_sampler_image_detection_torch.models.yolo import YoloConfig
+
+    det = YoloDetector(cfg=YoloConfig(), device="cuda", seed=7)
+    _random_bn(det.model, 7)
+    p, rec = fused_out.pop("p"), fused_out.pop("rec")
+    stage = _fused_stage(p, det, "rgb")
+    stage.warmup()
+    t = _fused_parity("full-width detector (416 px, width 1.0)", stage, rec,
+                      card)
+    del stage, det, p
+    torch.cuda.empty_cache()
+    return t
+
+
+class _CountSink:
+    """An audio sink that counts the samples written."""
+
+    def __init__(self):
+        self.samples = 0
+
+    def write(self, samples):
+        self.samples += int(np.asarray(samples).size)
+
+    def close(self):
+        pass
+
+
+def phase_fused_listen(card: str) -> dict:
+    """10 (d): the fused stage with ``listen="time"`` and then
+    ``listen="mvdr"`` (mic batch 64, K=16), steered at (10°, -5°), 4 s at
+    line rate: 0 underrun frames, audio frames equal to the mic frames the
+    program beamed, the audio e2e p50/p95, and a recorded batch's beams
+    against ``miso_beam`` / ``mvdr_listen_step`` run apart on the same
+    frames (and the same MVDR state)."""
+    from zybo_rt_sampler_image_detection_torch.apps.pipeline import (
+        _pad_full)
+    from zybo_rt_sampler_image_detection_torch.models import detect
+    from zybo_rt_sampler_image_detection_torch.ops import beamform, freq
+
+    out = {}
+    for listen in ("time", "mvdr"):
+        cfg, p = _fused_pipeline()
+        p.q_yolo = queue.Queue(maxsize=2 * FUSED_BATCH)
+        det = detect.pretrained_demo_detector(device="cuda")
+        sink = _CountSink()
+        stage = _fused_stage(p, det, "rgb", listen=listen, sink=sink)
+        p._miso = stage
+        d = p.steer_cartesian_degree(LISTEN_AZ, LISTEN_EL)
+        stage.warmup()
+        rec = _record_launch(stage, 3)
+        beams_seen = []
+        write = stage.audio.write
+
+        def keep(beams, skipped, stamps=None):
+            beams_seen.append(np.array(beams))
+            return write(beams, skipped, stamps)
+
+        stage.audio.write = keep
+        launches, elapsed, sent = _drive_fused(cfg, p, stage,
+                                               FULLRATE_SECONDS,
+                                               cam_fps=60.0)
+        rep = stage.report()
+        mic_frames = (rec["n"]) * stage.Km
+        x = _pad_full(torch.from_numpy(rec["mic"]).cuda(), cfg.n_microphones)
+        if listen == "time":
+            ref = beamform.miso_beam(x, p.tables, rec["d"]).cpu().numpy()
+        else:
+            ref = freq.mvdr_listen_step(rec["state"], x, stage._mvdr.tables,
+                                        rec["d"], alpha=stage.alpha)[0]
+            ref = ref.cpu().numpy()
+        got = stage.audio.post_fn(beams_seen[2])
+        ref = stage.audio.post_fn(ref)
+        err = np.abs(got - ref)
+        gate = float((err / (LISTEN_ATOL + LISTEN_RTOL * np.abs(ref))).max())
+        print(f"[fused-listen] {listen}: {rec['n']} cycles of "
+              f"{stage.Km} mic frames ({mic_frames} frames, "
+              f"{mic_frames / elapsed:.1f}/s vs line rate 190.7/s) in "
+              f"{elapsed:.2f} s; audio frames {rep['audio_frames']}; "
+              f"underrun frames {rep['underrun_frames']}; sink samples "
+              f"{sink.samples}; composited {stage.frames}; audio e2e p50 "
+              f"{rep.get('audio_e2e_p50_ms')} p95 "
+              f"{rep.get('audio_e2e_p95_ms')} ms; K1 launches {launches}; "
+              f"phase_p50_ms {json.dumps(rep['phase_p50_ms'])}; emulator "
+              f"sent {sent} packets [{card}]")
+        print(f"[fused-listen] {listen}: recorded batch (direction "
+              f"{rec['d']}, steered {d}): beams after the gain chain vs "
+              f"{'miso_beam' if listen == 'time' else 'mvdr_listen_step'} "
+              f"run apart max abs {err.max():.3e} ({gate:.3f} of the rtol "
+              f"{LISTEN_RTOL:g} / atol {LISTEN_ATOL:g} gate)")
+        assert rep["underrun_frames"] == 0, "underruns in the fused stage"
+        assert rep["audio_frames"] == len(beams_seen) * stage.Km
+        assert sink.samples == rep["audio_frames"] * cfg.n_samples
+        assert gate <= 1.0, f"{listen}: beams differ"
+        assert launches > 0
+        out[listen] = dict(launches=launches, e2e_p50=rep.get(
+            "audio_e2e_p50_ms"), e2e_p95=rep.get("audio_e2e_p95_ms"))
+        del p, stage, det
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_fused_demo(card: str) -> dict:
+    """10 (e): ``demo sensorfusion --replay --frames 30 --out ''`` (the
+    fused default) and ``--composite device``, each from the native
+    emulator, each exiting 0."""
+    import contextlib
+    import io
+
+    from zybo_rt_sampler_image_detection_torch.apps import demo
+    from zybo_rt_sampler_image_detection_torch.config import Config
+    from zybo_rt_sampler_image_detection_torch.ingest.streamer import (
+        NativeStreamer)
+    from zybo_rt_sampler_image_detection_torch.ops import equiv_kernel as ek
+
+    cfg = Config()
+    sig = np.tile(_source_frame(cfg, 40, 20), (1, 8))
+    out = {}
+    for extra in ([], ["--composite", "device"]):
+        emu = NativeStreamer(cfg, n_arrays=cfg.active_arrays)
+        buf = io.StringIO()
+        emu.start(sig, rate=cfg.sample_rate)
+        try:
+            zero_counts()
+            with contextlib.redirect_stdout(buf):
+                rc = demo.main(["sensorfusion", "--replay", "--frames", "30",
+                                "--out", ""] + extra)
+        finally:
+            emu.stop()
+        text = buf.getvalue()
+        rate = [ln for ln in text.splitlines() if "fused rate:" in ln]
+        comp = [ln for ln in text.splitlines() if ln.startswith("composite:")]
+        name = " ".join(extra) or "--composite fused (default)"
+        print(f"[fused-demo] {name}: rc {rc}; "
+              f"{rate[0] if rate else 'no rate line'}; "
+              f"{comp[0][:400] if comp else ''}; K1 launches "
+              f"{ek.equiv_power.launches} [{card}]")
+        assert rc == 0, f"demo sensorfusion {name} exited {rc}:\n{text}"
+        out[name] = ek.equiv_power.launches
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_fused_all(card: str) -> dict:
+    """Phase 10: (a) to (e)."""
+    comp = phase_composite(card)
+    fused = phase_fused(card)
+    wide = phase_fused_wide(card, fused)
+    listen = phase_fused_listen(card)
+    demos = phase_fused_demo(card)
+    rgb, yuv = fused["rgb"], fused["yuv420"]
+    print(f"[fused] display transport: rgb {rgb['frames_per_s']:.2f} "
+          f"frames/s, yuv420 {yuv['frames_per_s']:.2f} frames/s")
+    return dict(composite=comp, fused=fused, wide=wide, listen=listen,
+                demos=demos)
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -1804,18 +2306,26 @@ def main() -> int:
     phase_vision_demo_detector(card)
     vision = phase_vision_chain(card)
     t8 = time.perf_counter()
+    fused = phase_fused_all(card)
+    t9 = time.perf_counter()
     print(f"[time] build+K1 {t1 - t0:.1f} s, K5 {t2 - t1:.1f} s, K2-4 "
           f"{t3 - t2:.1f} s, live {t4 - t3:.1f} s, full rate+policy "
           f"{t5 - t4:.1f} s, listen {t6 - t5:.1f} s, fft/mvdr "
-          f"{t7 - t6:.1f} s, vision {t8 - t7:.1f} s")
+          f"{t7 - t6:.1f} s, vision {t8 - t7:.1f} s, fused {t9 - t8:.1f} s")
     # launches: the main path's run (phase 5 live / phase 6 full rate);
     # listen_launches: the combined full-rate stage's run (phase 7);
-    # vision_launches: the live stage beside the host fusion chain (9 c)
+    # vision_launches: the live stage beside the host fusion chain (9 c);
+    # fused_launches: inside FusedSensorStage (10 b, the rgb run);
+    # fused_listen_launches: the same with listen="time" (10 d)
     kernels = [dict(name="equiv_power", route="cuda", source=KERNEL_SOURCE,
                     replaces=KERNEL_REPLACES, launches=live["equiv"],
                     listen_launches=listen["equiv"]["launches"],
                     listen_live_launches=listen_live,
-                    vision_launches=vision["launches"], **main_k)]
+                    vision_launches=vision["launches"],
+                    fused_launches=fused["fused"]["rgb"]["launches"],
+                    fused_listen_launches=fused["listen"]["time"][
+                        "launches"],
+                    **main_k)]
     kernels.append(dict(
         name="time_power", route="cuda", source=TIME_SOURCE,
         replaces=TIME_REPLACES[0], also_replaces=TIME_REPLACES[1:],

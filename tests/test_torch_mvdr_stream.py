@@ -309,12 +309,26 @@ def test_demo_mimo_fft_headless(capsys):
     assert "heatmap #1" in out and "metrics:" in out
 
 
+@pytest.fixture
+def one_thread():
+    """One intra-op thread for a stage that must keep line rate on the
+    CPU: with two, each batch waits on torch's thread pool, and when the
+    suite's other workers hold every core a batch took 100 ms instead of
+    25 and now and then stalled for 0.3-1.9 s, past the 256-frame ring
+    (335 ms at the tiny preset's 763 frames/s), which then overwrote
+    frames."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.mark.parametrize("extra,port", [
     (["--algorithm", "mvdr"], 22142),
     (["--audio", "null", "--beam", "mvdr"], 22143),
     (["--audio", "null", "--beam", "mvdr", "--audio-only"], 22146),
 ])
-def test_demo_fullrate_mvdr_cpu(capsys, extra, port):
+def test_demo_fullrate_mvdr_cpu(capsys, extra, port, one_thread):
     """``demo fullrate --algorithm mvdr`` (the batched Capon maps),
     ``--audio null --beam mvdr`` (maps and beams from one update) and
     ``--audio-only``: line rate with 0 skipped, 0 gaps, 0 underruns."""

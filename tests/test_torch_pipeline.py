@@ -247,8 +247,8 @@ def test_demo_mimo_headless(capsys):
 
 def test_port_imports_without_jax():
     """The port never imports jax, not even indirectly: the heatmap,
-    listening and FFT/MVDR modules, the vision models, fusion and the
-    demo."""
+    listening and FFT/MVDR modules, the vision models, fusion (the
+    compositor too), the fused stage and the demo."""
     code = ("import sys; sys.modules['jax'] = None; "
             "import zybo_rt_sampler_image_detection_torch as z; "
             "from zybo_rt_sampler_image_detection_torch.apps import "
@@ -260,7 +260,10 @@ def test_port_imports_without_jax():
             "fusion; "
             "from zybo_rt_sampler_image_detection_torch.models import "
             "detect, yolo, nms, sort, tracking, runner, eval, data; "
-            "from zybo_rt_sampler_image_detection_torch.apps import web; "
+            "from zybo_rt_sampler_image_detection_torch.apps import web, "
+            "fused; "
+            "from zybo_rt_sampler_image_detection_torch.fusion import "
+            "composite; "
             "from zybo_rt_sampler_image_detection_torch.ingest import "
             "udptools; "
             "assert not any(m == 'jax' or m.startswith('jax.') "

@@ -14,6 +14,7 @@ Examples::
     python -m zybo_rt_sampler_image_detection_torch.apps.demo fullrate --seconds 10 --algorithm mvdr --audio null --beam mvdr
     python -m zybo_rt_sampler_image_detection_torch.apps.demo fullrate --device cpu --preset tiny --seconds 3
     python -m zybo_rt_sampler_image_detection_torch.apps.demo sensorfusion --replay --camera -2 --out ''
+    python -m zybo_rt_sampler_image_detection_torch.apps.demo sensorfusion --replay --camera -2 --listen time --out ''
 
 Ported so far: ``mimo`` (the cv2 heatmap window, or stats when
 ``--headless``; every algorithm, ``fft`` and ``mvdr`` included), ``miso``
@@ -21,9 +22,12 @@ Ported so far: ``mimo`` (the cv2 heatmap window, or stats when
 the batched stage), ``fullrate`` (heatmaps, ``--audio`` heatmaps and the
 beam from one transfer, ``--audio-only``) and ``emulate`` (parity with
 ``PC/demo.py`` mimo/miso and ``udp/streamer.c``), and ``sensorfusion``
-on the host chain (``--composite host``: camera, YOLO tracker, heatmap
-stage, ``Viewer`` and ``SensorFusionDecider``).  ``record``, ``web`` and
-the device and fused compositors are later slices.
+(``--composite host``: camera, YOLO tracker, heatmap
+stage, ``Viewer`` and ``SensorFusionDecider``), ``--composite device``
+(the batched device compositor) and ``--composite fused`` (the default:
+power, detector and compositor in one device program a batch, with
+``--listen time|mvdr`` the gapless beam too).  ``record`` and ``web`` are
+later slices.
 """
 
 from __future__ import annotations
@@ -369,52 +373,37 @@ def cmd_fullrate(args):
     return 0 if ok else 1
 
 
-# the sensorfusion arguments of slices still to come: (flag, whether the
-# arguments set it, what it needs)
-_LATER_SENSORFUSION = (
-    ("--composite device", lambda a: a.composite == "device",
-     "the device compositor (fusion/composite.py DeviceCompositor and "
-     "DeviceViewer, ROADMAP queue 1 item 12)"),
-    ("--composite fused", lambda a: a.composite == "fused",
-     "the fused display stage (apps/fused.py FusedSensorStage, ROADMAP "
-     "queue 1 item 13)"),
-    ("--listen", lambda a: a.listen != "off",
-     "the fused display stage's embedded listening (ROADMAP queue 1 item "
-     "13)"),
-    ("--heatmap-rate", lambda a: a.heatmap_rate is not None,
-     "the batched stage's max_rate throttle (ROADMAP queue 1 item 13)"),
-    ("--mic-batch", lambda a: a.mic_batch is not None,
-     "the fused display stage (ROADMAP queue 1 item 13)"),
-    ("--composite-batch", lambda a: a.composite_batch is not None,
-     "a device compositor (ROADMAP queue 1 items 12-13)"),
-    ("--transfer", lambda a: a.transfer is not None,
-     "the fused display stage's packed upload (ROADMAP queue 1 item 13)"),
-    ("--display-transport", lambda a: a.display_transport is not None,
-     "the fused display stage's video transports (ROADMAP queue 1 item "
-     "13)"),
-    ("--pretrain", lambda a: a.pretrain,
-     "the port's training slice (models/train.py, ROADMAP queue 1 item "
-     "11); --camera -2 without --weights loads the committed demo "
-     "detector"),
-)
-
-
 def cmd_sensorfusion(args):
     """Sensor-fusion demo (``main.pyx:669-736`` mimo +
-    ``record_sensorfusion``) on the host chain (``--composite host``):
-    camera -> YOLO tracker, receiver -> heatmap, composited by
-    ``utils.viz.Viewer`` through ``SensorFusionDecider``; the composited
-    frames go to an array display and, with ``--out``, an mp4 (cv2).
+    ``record_sensorfusion``): camera -> YOLO tracker, receiver -> heatmap,
+    fused by the decider; the composited frames go to an array display
+    and, with ``--out``, an mp4 (cv2).
+
+    ``--composite fused`` (the default) runs the whole display cycle
+    (steered power, YOLO forward, and the display chain: log-norm, jet-LUT
+    colorize, resizes, power box, EMA, decider gating and blends) as one
+    device program per K-frame batch with one packed upload and one packed
+    download (``apps.fused.FusedSensorStage``); ``--listen time|mvdr``
+    also beams the gapless steered-listening stream in the same program.
+    ``--composite device`` runs the display chain alone as one batched
+    device program (``fusion.composite.DeviceCompositor``) beside the
+    separate heatmap and tracker stages; ``--composite host`` keeps the
+    reference-shaped host chain (``utils.viz.Viewer`` +
+    ``SensorFusionDecider``).
 
     ``--heatmap-batch`` > 1 runs the full-rate heatmap stage publishing
-    every map to the display queue (1 = the live single-frame stage);
-    ``--tracker-batch`` > 1 runs one YOLO device program per K camera
-    frames.  ``--camera -2`` (the detectable moving-object scene) without
-    ``--weights`` takes the committed demo detector."""
-    for flag, is_set, needs in _LATER_SENSORFUSION:
-        if is_set(args):
-            raise SystemExit(f"sensorfusion {flag} needs {needs}, which "
-                             f"the port does not have yet")
+    every map to the display queue, at most ``--heatmap-rate`` maps/s (1 =
+    the live single-frame stage); ``--tracker-batch`` > 1 runs one YOLO
+    device program per K camera frames.  ``--camera -2`` (the detectable
+    moving-object scene) without ``--weights`` takes the committed demo
+    detector.  Exits 1 when fewer than ``--frames`` frames were
+    composited or the fused stage failed."""
+    if args.pretrain:
+        raise SystemExit(
+            "sensorfusion --pretrain needs the port's training slice "
+            "(models/train.py, ROADMAP queue 1 item 11), which the port "
+            "does not have yet; --camera -2 without --weights loads the "
+            "committed demo detector")
     from ..models.detect import YoloDetector, pretrained_demo_detector
     from ..models.yolo import YoloConfig
     from ..utils import imaging
@@ -425,16 +414,37 @@ def cmd_sensorfusion(args):
     if args.out and not imaging._HAS_CV2:
         raise SystemExit(f"--out {args.out} needs cv2 to write the mp4; "
                          f"pass --out '' to skip it")
-    p = _make_pipeline(args)
+    device_comp = args.composite == "device"
+    fused_comp = args.composite == "fused"
+    listen = None if args.listen == "off" else args.listen
+    if listen and not fused_comp:
+        raise SystemExit("--listen folds listening into the fused stage: "
+                         "it needs --composite fused")
+    # embedded listening reads counter-contiguous mic batches of
+    # mic_batch (default 4x the composite batch): the ring must hold a
+    # few cycles' worth or read_batch refuses the batch size
+    mic_batch = (args.mic_batch or 4 * args.composite_batch) if listen \
+        else 0
+    p = _make_pipeline(args, ring_frames=max(64, 4 * mic_batch))
+    frames_wanted = args.frames or 30
+    disp = ArrayDisplay(keep=frames_wanted)
+    stage = viewer = None
     try:
         p.connect()
-        if args.heatmap_batch > 1:
+        if fused_comp:
+            # the fused stage owns the heatmap path, and batches K camera
+            # frames a cycle: deepen the camera queue (drop-oldest at 2 for
+            # the single-frame loops) before start_camera takes it
+            import queue as _queue
+            p.q_yolo = _queue.Queue(maxsize=2 * args.composite_batch)
+        elif args.heatmap_batch > 1:
             def all_maps_sink(powers, first_seq):
                 for j, pw in enumerate(powers):
                     put_drop_oldest(p.q_power, (pw, first_seq + j))
 
             p.start_heatmap_batched(batch=args.heatmap_batch,
-                                    sink=all_maps_sink)
+                                    sink=all_maps_sink,
+                                    max_rate=args.heatmap_rate)
         else:
             p.start_heatmap()
         if args.camera == -2:
@@ -457,35 +467,71 @@ def cmd_sensorfusion(args):
                                num_classes=args.detector_classes))
         tkw = (dict(max_age=args.track_coast, report_coasted=True)
                if args.track_coast else {})
-        if args.tracker_batch > 1:
-            p.start_tracker_batched(det, batch=args.tracker_batch, **tkw)
+        if not fused_comp:          # the fused stage detects and tracks
+            tkw["emit_boxes"] = device_comp
+            if args.tracker_batch > 1:
+                p.start_tracker_batched(det, batch=args.tracker_batch,
+                                        **tkw)
+            else:
+                p.start_tracker(det, **tkw)
+            tkw.pop("emit_boxes")
+        cam_hw = getattr(cam, "size", None)
+        if cam_hw is None:          # a real capture: probe one frame
+            ok, probe = cam.read()
+            cam_hw = probe.shape[:2] if ok else (240, 320)
+        grid = (p.cfg.max_res_x, p.cfg.max_res_y)
+        if fused_comp or device_comp:
+            from ..fusion.composite import DeviceCompositor
+            compositor = DeviceCompositor(
+                grid, cam_hw, window=(args.width, args.height),
+                yolo_shape=cam_hw, max_tracks=8, device=p.device)
+        if fused_comp:
+            stage = _start_fused(args, p, compositor, det, disp, tkw,
+                                 listen)
+            t0 = time.time()
+            deadline = t0 + max(60.0, frames_wanted * 5.0)
+            while (stage.frames < frames_wanted and stage.error is None
+                   and time.time() < deadline):
+                time.sleep(0.1)
+            elapsed = time.time() - t0
         else:
-            p.start_tracker(det, **tkw)
-        frames_wanted = args.frames or 30
-        disp = ArrayDisplay(keep=frames_wanted)
-        viewer = Viewer(cb=lambda h, v: p.steer_cartesian_degree(h, v),
-                        window=(args.width, args.height), display=disp)
+            if device_comp:
+                from ..fusion.composite import DeviceViewer
+                viewer = DeviceViewer(compositor, disp,
+                                      batch=args.composite_batch)
+                print("building the device compositor ...")
+                t0 = time.time()
+                viewer.warmup()
+                print(f"  ready in {time.time() - t0:.1f}s")
+            else:
+                viewer = Viewer(
+                    cb=lambda h, v: p.steer_cartesian_degree(h, v),
+                    window=(args.width, args.height), display=disp)
 
-        class Running:
-            # a wall-clock deadline: if a producer thread dies the queues
-            # stop filling, and the demo stops and reports what it
-            # composited instead of waiting forever
-            deadline = time.time() + max(60.0, frames_wanted * 5.0)
+            class Running:
+                # a wall-clock deadline: if a producer thread dies the
+                # queues stop filling, and the demo stops and reports
+                # what it composited instead of waiting forever
+                deadline = time.time() + max(60.0, frames_wanted * 5.0)
 
-            @property
-            def value(self):
-                return time.time() < self.deadline
+                @property
+                def value(self):
+                    return time.time() < self.deadline
 
-        t0 = time.time()
-        viewer.loop(p.q_power, Running(), q_viewer=p.q_viewer,
-                    q_inference=p.q_inference, max_frames=frames_wanted)
-        elapsed = time.time() - t0
+            t0 = time.time()
+            viewer.loop(p.q_power, Running(), q_viewer=p.q_viewer,
+                        q_inference=p.q_inference, max_frames=frames_wanted)
+            elapsed = time.time() - t0
     finally:
         p.stop()
-    n = len(disp.frames)
+    n = stage.frames if stage is not None else len(disp.frames)
     print(f"fused rate: {n / elapsed:.1f} fps over {n} composited frames "
           f"({elapsed:.1f}s)")
-    if args.out and n:
+    if stage is not None:
+        print("composite:", stage.report())
+    elif device_comp:
+        print("composite:", viewer.report())
+    if args.out and disp.frames:
         import cv2
         h, w = disp.frames[0].shape[:2]
         vw = cv2.VideoWriter(args.out, cv2.VideoWriter_fourcc(*"mp4v"),
@@ -493,9 +539,41 @@ def cmd_sensorfusion(args):
         for f in disp.frames:
             vw.write(f)
         vw.release()
-        print(f"wrote {n} fused frames -> {args.out}")
+        print(f"wrote {len(disp.frames)} fused frames -> {args.out}")
     print("metrics:", p.report())
-    return 0 if n == frames_wanted else 1
+    if stage is not None and stage.error is not None:
+        print(f"the fused stage failed: {stage.error!r}")
+        return 1
+    return 0 if n >= frames_wanted else 1
+
+
+def _start_fused(args, p, compositor, det, disp, tkw, listen):
+    """Build, warm up and start the fused stage of ``demo sensorfusion``."""
+    from .fused import FusedSensorStage
+
+    # only the connected channel rows are uploaded (the tail rows are
+    # never written), the policy of demo fullrate
+    n_ch = (p.receiver.n_arrays
+            or p.cfg.active_arrays) * p.cfg.rows * p.cfg.columns
+    a_sink = None
+    if listen:
+        from ..utils import audio as audio_mod
+        a_sink = audio_mod.make_sink(args.audio or "mock",
+                                     p.cfg.sample_rate, args.audio_out)
+    stage = FusedSensorStage(
+        p.receiver, p.tables, compositor, det, p.q_yolo, disp, p.metrics,
+        batch=args.composite_batch, channels=min(n_ch, p.cfg.n_microphones),
+        transfer=args.transfer, display_transport=args.display_transport,
+        steer_cb=lambda h, v: p.steer_cartesian_degree(h, v),
+        tracker_kwargs=tkw or None, listen=listen, audio_sink=a_sink,
+        mic_batch=args.mic_batch)
+    if listen:
+        p._miso = stage             # steering reaches the embedded beam
+    print("building the fused sensor stage ...")
+    t0 = time.time()
+    stage.warmup()
+    print(f"  ready in {time.time() - t0:.1f}s")
+    return p.run_stage(stage)
 
 
 def main(argv=None):
@@ -569,18 +647,36 @@ def main(argv=None):
     p.set_defaults(fn=cmd_fullrate, replay=True)
 
     p = sub.add_parser("sensorfusion",
-                       help="camera + YOLO + heatmap fusion demo on the "
-                            "host chain -> mp4")
+                       help="camera + YOLO + heatmap fusion demo -> mp4")
     _add_common(p)
     p.add_argument("--camera", type=int, default=-1,
                    help="camera index (-1 = synthetic gradients, -2 = "
                         "detectable moving-object scene)")
-    p.add_argument("--composite", default="host",
-                   choices=["host", "device", "fused"],
-                   help="display-chain backend: 'host' = the "
-                        "reference-shaped chain (Viewer + "
-                        "SensorFusionDecider); 'device' and 'fused' are "
-                        "later slices of the port")
+    p.add_argument("--composite", default="fused",
+                   choices=["fused", "device", "host"],
+                   help="display-chain backend: 'fused' (default) = the "
+                        "whole cycle (steered power + YOLO + composite) "
+                        "as one device program with one packed upload and "
+                        "one packed download a batch; 'device' = separate "
+                        "batched stages with the compositor on the "
+                        "device; 'host' = the reference-shaped chain "
+                        "(Viewer + SensorFusionDecider)")
+    p.add_argument("--composite-batch", type=int, default=16,
+                   help="frames per device composite program")
+    p.add_argument("--listen", default="off",
+                   choices=["off", "time", "mvdr"],
+                   help="--composite fused: fold gapless steered "
+                        "listening into the same program (the beam rides "
+                        "the packed download; the loop reads "
+                        "counter-contiguous mic batches)")
+    p.add_argument("--audio", default=None,
+                   choices=["wav", "null", "sounddevice", "auto", "mock"],
+                   help="audio sink for --listen (default mock = a "
+                        "deadline-accounting playback stand-in)")
+    p.add_argument("--audio-out", default="sensorfusion_miso.wav")
+    p.add_argument("--mic-batch", type=int, default=0,
+                   help="mic frames per fused cycle for --listen (0 = 4x "
+                        "the composite batch)")
     p.add_argument("--tracker-batch", type=int, default=4,
                    help="camera frames per YOLO device program (1 = the "
                         "single-frame reference-parity loop)")
@@ -591,8 +687,16 @@ def main(argv=None):
     p.add_argument("--heatmap-batch", type=int, default=16,
                    help="frames per heatmap device program, all maps "
                         "published (1 = single-frame reference loop)")
+    p.add_argument("--heatmap-rate", type=float, default=100.0,
+                   help="cap the batched heatmap stage at N maps/s (0 = "
+                        "line rate); the display needs about twice the "
+                        "viewer's fps, and an uncapped stage takes the "
+                        "host's cores from the other legs")
     p.add_argument("--camera-fps", type=float, default=60.0,
                    help="camera frame-rate cap")
+    p.add_argument("--pretrain", type=int, default=0,
+                   help="train the demo detector N steps first: the "
+                        "training slice, refused until it is ported")
     p.add_argument("--weights", default=None,
                    help="detector weights (.pkl of either package, or "
                         ".npz)")
@@ -602,21 +706,23 @@ def main(argv=None):
                    help="detector input size (px)")
     p.add_argument("--detector-width", type=float, default=0.5,
                    help="detector width multiplier")
+    p.add_argument("--transfer", default="f32", choices=["f32", "f16"],
+                   help="mic-sample upload dtype for --composite fused: "
+                        "f16 halves that leg at ~1e-3 relative error "
+                        "(display-grade opt-in)")
+    p.add_argument("--display-transport", default="rgb",
+                   choices=["rgb", "yuv420"],
+                   help="video transport for --composite fused (camera "
+                        "upload and composite download): rgb (default) "
+                        "keeps byte-exact pixels; yuv420 halves both legs "
+                        "(chroma 2x2-subsampled like the 4:2:0 mp4 the "
+                        "demo writes) at the cost of the host's I420 "
+                        "conversions, slower on the H100's host (PERF.md)")
     p.add_argument("--out", default="sensorfusion.mp4",
                    help="mp4 of the composited frames (needs cv2; '' = "
                         "none)")
     p.add_argument("--width", type=int, default=640)
     p.add_argument("--height", type=int, default=360)
-    # arguments of later slices: refused with the ROADMAP item they need
-    p.add_argument("--listen", default="off",
-                   choices=["off", "time", "mvdr"])
-    p.add_argument("--heatmap-rate", type=float, default=None)
-    p.add_argument("--mic-batch", type=int, default=None)
-    p.add_argument("--composite-batch", type=int, default=None)
-    p.add_argument("--transfer", default=None, choices=["f32", "f16"])
-    p.add_argument("--display-transport", default=None,
-                   choices=["yuv420", "rgb"])
-    p.add_argument("--pretrain", type=int, default=0)
     p.set_defaults(fn=cmd_sensorfusion)
 
     args = ap.parse_args(argv)

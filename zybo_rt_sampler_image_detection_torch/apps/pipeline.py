@@ -29,7 +29,8 @@ distortionless beams, or both from one state update).
 Steering: :meth:`Pipeline.steer_cartesian_degree` /
 :meth:`Pipeline.steer_click` mirror ``main.pyx:498-528``; the direction
 indexes the tables on the device, so a steer needs no host sync and no
-rebuild.  The fused display stage is a later slice (ROADMAP).
+rebuild.  The fused display stage (``apps/fused.py``) builds on
+:class:`Stage`, :class:`AudioLeg` and :func:`_batched_power_program`.
 """
 
 from __future__ import annotations
@@ -401,7 +402,8 @@ class BatchedStage(Stage):
 
     def __init__(self, name: str, receiver: Receiver,
                  metrics: PipelineMetrics, batch: int, channels: int = 0,
-                 transfer: str = "f32", device="cuda"):
+                 transfer: str = "f32", device="cuda",
+                 max_rate: float = 0.0):
         super().__init__(name, metrics)
         if batch > receiver.ring_frames:
             # fail fast: read_batch would raise inside the stage thread,
@@ -420,6 +422,13 @@ class BatchedStage(Stage):
         self.transfer_dtype = {"f32": torch.float32,
                                "f16": torch.float16}[transfer]
         self.device = beamform.resolve_device(device)
+        # max_rate (frames/s, 0 = line rate): throttle the stage, letting
+        # the ring overwrite the frames it skips (counted in `skipped`).
+        # A display consumer needs about twice the viewer's fps, not line
+        # rate, and an uncapped stage takes the host<->device link and the
+        # host's cores from the camera and compositing legs.
+        self.max_rate = float(max_rate)
+        self._rate_t0 = None
         self._slots = None
         self._next_slot = 0
         self._copy_stream = None
@@ -509,6 +518,14 @@ class BatchedStage(Stage):
         next_seq = self.receiver.stream_anchor_seq
         pending = None
         while not self.stop_event.is_set():
+            if self.max_rate and self._rate_t0 is not None:
+                ahead = (self.processed / self.max_rate
+                         - (time.perf_counter() - self._rate_t0))
+                if ahead > 0.0:
+                    if pending is not None:
+                        self._finish(pending)   # sync while throttled
+                        pending = None
+                    time.sleep(min(ahead, 0.5))
             try:
                 res = self.receiver.read_batch(
                     self.batch, next_seq, timeout=0.5,
@@ -521,6 +538,8 @@ class BatchedStage(Stage):
             batch, first, skipped = res[:3]
             stamps = res[3] if self.want_stamps else None
             next_seq = first + self.batch
+            if self._rate_t0 is None:
+                self._rate_t0 = time.perf_counter()
             t0 = time.perf_counter()
             host, done = self._dispatch(batch)   # copy + launch, no wait
             if pending is not None:
@@ -552,9 +571,10 @@ class BatchedHeatmapProducer(BatchedStage):
     def __init__(self, receiver: Receiver, tables, q_power: queue.Queue,
                  metrics: PipelineMetrics, batch: int = 16,
                  power_fn=None, sink=None, channels: int = 0,
-                 transfer: str = "f32"):
+                 transfer: str = "f32", max_rate: float = 0.0):
         super().__init__("heatmap_batched", receiver, metrics, batch,
-                         channels, transfer, device=tables.device)
+                         channels, transfer, device=tables.device,
+                         max_rate=max_rate)
         self.tables = tables
         self.q_power = q_power
         self.sink = sink or self._default_sink
@@ -840,9 +860,9 @@ def _draw_tracks(imaging, blank, tracks, dets, prev_rect_conf):
 
 def _tracks_payload(tracks) -> np.ndarray:
     """The int-cast (T, 5) boxes the host would draw, as the
-    emit_boxes q_inference payload (the JAX package's device compositor
-    reproduces cv2's thickness-2 rectangles from these exact
-    coordinates; its port is ROADMAP queue 1 item 12)."""
+    emit_boxes q_inference payload (``fusion.composite.DeviceCompositor``
+    rasterizes cv2's thickness-2 rectangles from these exact
+    coordinates)."""
     if len(tracks) == 0:
         return np.zeros((0, 5), np.float32)
     return np.asarray(tracks).astype(int).astype(np.float32)
@@ -851,8 +871,8 @@ def _tracks_payload(tracks) -> np.ndarray:
 class TrackerStage(Stage):
     """One YOLO program and one tracker step per camera frame.
     ``emit_boxes=True`` publishes the raw track boxes instead of a drawn
-    canvas, for a compositor that rasterizes them on the device (ROADMAP
-    queue 1 item 12; no consumer in the port yet)."""
+    canvas, for the device compositor (``demo sensorfusion --composite
+    device``), which rasterizes them."""
 
     def __init__(self, detector, q_yolo: queue.Queue,
                  q_inference: queue.Queue, metrics: PipelineMetrics,
@@ -1046,15 +1066,18 @@ class Pipeline:
         return s
 
     def make_heatmap_batched(self, batch: int = 16, sink=None,
-                             channels: int = 0, transfer: str = "f32"):
+                             channels: int = 0, transfer: str = "f32",
+                             max_rate: float = 0.0):
         """Build (but don't start) the full-line-rate stage, so callers can
         :meth:`BatchedHeatmapProducer.warmup` before any packets flow and
-        :meth:`run_stage` it after :meth:`connect`."""
+        :meth:`run_stage` it after :meth:`connect`.  ``max_rate``
+        (frames/s) throttles it for a display consumer (see
+        :class:`BatchedStage`)."""
         return BatchedHeatmapProducer(self.receiver, self.tables,
                                       self.q_power, self.metrics,
                                       batch=batch, power_fn=self._power_fn,
                                       sink=sink, channels=channels,
-                                      transfer=transfer)
+                                      transfer=transfer, max_rate=max_rate)
 
     def run_stage(self, s):
         self.stages.append(s)
@@ -1062,10 +1085,12 @@ class Pipeline:
         return s
 
     def start_heatmap_batched(self, batch: int = 16, sink=None,
-                              warmup: bool = True):
+                              warmup: bool = True, max_rate: float = 0.0):
         """Full-line-rate variant of :meth:`start_heatmap`: every frame
-        beamformed in K-frame device batches."""
-        s = self.make_heatmap_batched(batch=batch, sink=sink)
+        beamformed in K-frame device batches (at most ``max_rate``
+        frames/s when it is set)."""
+        s = self.make_heatmap_batched(batch=batch, sink=sink,
+                                      max_rate=max_rate)
         if warmup:
             s.warmup()
         return self.run_stage(s)
@@ -1237,7 +1262,12 @@ class Pipeline:
             s.join(timeout=2.0)
         self.receiver.disconnect()
         if self._miso is not None:
-            self._miso.sink.close()
+            # a listening stage owns .sink; the fused display stage with
+            # embedded listening keeps it on its AudioLeg
+            leg = getattr(self._miso, "audio", None) or self._miso
+            sink = getattr(leg, "sink", None)
+            if sink is not None:
+                sink.close()
 
     def report(self):
         rep = self.metrics.report()

@@ -112,6 +112,26 @@ Phases (any failure raises, so the exit code is non-zero):
    sensorfusion --replay --frames 30 --out ''`` (the fused default) and
    ``--composite device``, each exiting 0.
 
+11. Training (``models/train.py``; no kernel of its own: cuDNN FP32 convs
+   with TF32 off in the forward and the backward, torch's AdamW): (a) five
+   train steps at the demo shape (64 px, width 0.25, B=8) from one seeded
+   init on the card against the CPU, each in eight batch orders (losses
+   at rtol 1e-4, every leaf within a relative norm of 3e-4, for at least
+   one pair of orders); (b) train steps/s and img/s
+   at the demo shape and at ``YoloConfig(416, width 1.0, 3 classes)``
+   with B=16 (CUDA events after warm-up), a ``utils.profiling.trace`` of
+   five steps split into forward / backward / optimizer with the top
+   device kernels and the device's idle share, the step's bound, and the
+   host cost of one ``annotate`` range; (c)
+   ``train.pretrained_demo_detector(steps=700)`` on the card with a
+   temporary cache, held-out AP@0.5 at least 0.75; (d)
+   ``train_reference_recipe`` at 416 px, width 1.0, 3 classes, B=16, cut
+   to 300 steps with a pool of 16 batches and 64 held-out images: steps/s,
+   img/s, the losses, mAP, the saved weights loaded into a
+   ``YoloDetector`` and run, the loss falling; (e) ``demo record
+   --replay --seconds 1`` from the native emulator, the ``.npy`` shape
+   checked.
+
 The line before the last is a JSON record of the kernels; the last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -2270,6 +2290,366 @@ def phase_fused_all(card: str) -> dict:
                 demos=demos)
 
 
+# -- phase 11: training on the card ------------------------------------------
+
+TRAIN_LOSS_RTOL = 1e-4      # five steps' losses (tests/test_torch_train.py)
+TRAIN_LEAF_RNORM = 3e-4     # every leaf after five steps (test_vision.py:451)
+TRAIN_AP_GATE = 0.75        # the demo detector (tests/test_vision.py:189)
+# (label, YoloConfig keywords, batch, timed steps)
+TRAIN_SHAPES = (
+    ("demo", dict(input_size=64, width_mult=0.25, num_classes=1), 8, 200),
+    ("416", dict(input_size=416, width_mult=1.0, num_classes=3), 16, 60))
+TRAIN_RANGES = ("train/forward", "train/backward", "train/optimizer")
+
+
+def _leaf_dict(tree, prefix=()) -> dict:
+    out = {}
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            out.update(_leaf_dict(tree[k], prefix + (k,)))
+    else:
+        out[prefix] = np.asarray(tree, np.float64)
+    return out
+
+
+def _five_steps(device: str, batches, order) -> tuple:
+    from zybo_rt_sampler_image_detection_torch.models import train, yolo
+
+    cfg = yolo.YoloConfig(input_size=64, width_mult=0.25)
+    tr = train.Trainer(cfg, learning_rate=3e-3, seed=0, device=device)
+    losses = [tr.train_step(im[order], [bx[i] for i in order])
+              for im, bx in batches]
+    return losses, _leaf_dict(tr.state.variables)
+
+
+def phase_train_parity(card: str) -> dict:
+    """11 (a): five train steps at the demo shape (64 px, width 0.25,
+    B=8) from one seeded init on the card and on the CPU, each in the
+    given batch order and in seven fixed permutations of every batch (the
+    same training): the losses at rtol 1e-4 and every leaf within a
+    relative norm of 3e-4 for at least one (card order, CPU order) pair.
+    A near-tie in a max-pool window turns an FP32 gradient by about 1%
+    one way or the other, so each side's runs fall on a few branches
+    (``tests/test_torch_train.py::test_five_steps_match_jax``)."""
+    from zybo_rt_sampler_image_detection_torch.models import data
+
+    rng = np.random.default_rng(6)
+    batches = [data.synthetic_detection_batch(rng, 8, 64) for _ in range(5)]
+    orders = [np.arange(8)] + [np.random.default_rng(s).permutation(8)
+                               for s in range(7)]
+    cards = [_five_steps("cuda", batches, o) for o in orders]
+    cpus = [_five_steps("cpu", batches, o) for o in orders]
+    for got, _ in cards:
+        assert np.isfinite(got).all(), got
+    dists = {}
+    for a, (got, got_leaves) in enumerate(cards):
+        for b, (ref, ref_leaves) in enumerate(cpus):
+            leaf = max(np.linalg.norm(got_leaves[p] - r)
+                       / max(np.linalg.norm(r), 1e-12)
+                       for p, r in ref_leaves.items())
+            loss = float(np.max(np.abs(np.subtract(got, ref))
+                                / np.abs(ref)))
+            dists[a, b] = (loss, leaf)
+    ok = [k for k, (loss, leaf) in dists.items()
+          if loss < TRAIN_LOSS_RTOL and leaf < TRAIN_LEAF_RNORM]
+    best = min(dists, key=lambda k: dists[k][1])
+    same = [f"{dists[a, a][0]:.2e}/{dists[a, a][1]:.2e}"
+            for a in range(len(orders))]
+    print(f"[train-parity] five steps, card vs CPU, losses (given order) "
+          f"{[round(x, 4) for x in cards[0][0]]}; max loss rel / max leaf "
+          f"rnorm in the same order, for each of the 8 orders: {same}; "
+          f"{len(ok)} of {len(dists)} (card, CPU) order pairs within the "
+          f"gates ({TRAIN_LOSS_RTOL}, {TRAIN_LEAF_RNORM}), the closest "
+          f"{best}: {dists[best][0]:.2e} / {dists[best][1]:.2e} [{card}]")
+    assert ok, f"card vs CPU training off the gates in every pair: {same}"
+    return dict(losses=cards[0][0], pairs_ok=len(ok), best=dists[best])
+
+
+def _trace_split(logdir: str) -> dict:
+    """Device time by ``annotate`` range and by kernel from the Chrome
+    trace ``utils.profiling.trace`` wrote: a kernel belongs to the range
+    whose host interval holds its launch (matched by correlation id)."""
+    import glob
+
+    path = max(glob.glob(os.path.join(logdir, "trace_*.json")),
+               key=os.path.getmtime)
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    ranges = [(e["ts"], e["ts"] + e["dur"], e["name"]) for e in events
+              if e.get("cat") == "user_annotation"
+              and e.get("name") in TRAIN_RANGES]
+    launch_at = {e["args"]["correlation"]: e["ts"] for e in events
+                 if e.get("cat") in ("cuda_runtime", "cuda_driver")
+                 and "correlation" in e.get("args", {})}
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    by_range = dict.fromkeys(TRAIN_RANGES, 0.0)
+    by_name: dict = {}
+    other = 0.0
+    for k in kernels:
+        dur = float(k["dur"])
+        t = launch_at.get(k.get("args", {}).get("correlation"))
+        owner = next((n for a, b, n in ranges
+                      if t is not None and a <= t <= b), None)
+        if owner is None:
+            other += dur
+        else:
+            by_range[owner] += dur
+        n, c = by_name.get(k["name"], (0.0, 0))
+        by_name[k["name"]] = (n + dur, c + 1)
+    span = 0.0
+    if kernels and ranges:
+        start = min(a for a, _, _ in ranges)
+        end = max(k["ts"] + k["dur"] for k in kernels)
+        span = end - start
+    busy = sum(by_range.values()) + other
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
+    return dict(by_range_us=by_range, other_us=other, busy_us=busy,
+                span_us=span, n_kernels=len(kernels), top=top)
+
+
+def _train_bound(cfg, B: int, model) -> dict:
+    """A train step's bound: the convs' forward operations (counted by
+    ``FlopCounterMode`` on a one-frame CPU run) times 3 (forward, input
+    and weight gradients) times B, at FP32 on the CUDA cores (TF32 off);
+    bytes: the uint8 batch read once, the weights, gradients and both
+    Adam moments read and written once."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from zybo_rt_sampler_image_detection_torch.models import yolo
+
+    m = yolo.TinyYolo(cfg).eval()
+    x = torch.zeros(1, cfg.input_size, cfg.input_size, 3)
+    with torch.no_grad(), FlopCounterMode(display=False) as fc:
+        m(x)
+    fwd = fc.get_total_flops()
+    n_params = sum(p.numel() for p in model.parameters())
+    nb = B * cfg.input_size ** 2 * 3 + 2 * 4 * 4 * n_params
+    return dict(fwd_gflop_per_frame=fwd / 1e9, step_gflop=3 * fwd * B / 1e9,
+                **bound(nb, 3 * fwd * B))
+
+
+def phase_train_throughput(card: str) -> dict:
+    """11 (b): train steps/s at the demo shape (64 px, width 0.25, one
+    class, B=8) and at ``YoloConfig(416, width 1.0, 3 classes)`` with
+    B=16: ``train.pool_step`` on a device-resident pool of 4 batches,
+    CUDA events over the timed steps after 10 warm-up steps; a
+    ``utils.profiling.trace`` of 5 steps split into forward, backward and
+    optimizer by their ``annotate`` ranges, with the top device kernels
+    and the device's idle share over the traced window; the bound."""
+    import tempfile
+
+    from zybo_rt_sampler_image_detection_torch.models import data, train, yolo
+    from zybo_rt_sampler_image_detection_torch.utils import profiling
+
+    out = {}
+    for label, kw, B, steps in TRAIN_SHAPES:
+        cfg = yolo.YoloConfig(**kw)
+        tr = train.Trainer(cfg, learning_rate=1e-3, seed=0, device="cuda")
+        rng = np.random.default_rng(1)
+        batches = [data.synthetic_detection_batch(
+            rng, B, cfg.input_size, num_classes=cfg.num_classes)
+            for _ in range(4)]
+        pool = torch.as_tensor(np.stack(
+            [(im * 255.0).astype(np.uint8) for im, _ in batches]),
+            device="cuda")
+        tms = [train.build_targets(cfg, bx) for _, bx in batches]
+        targets = [torch.as_tensor(np.stack([tm[h][0] for tm in tms]),
+                                   device="cuda") for h in range(2)]
+        masks = [torch.as_tensor(np.stack([tm[h][1] for tm in tms]),
+                                 device="cuda") for h in range(2)]
+
+        def step(i):
+            return train.pool_step(tr, pool, targets, masks, i % 4)
+
+        for i in range(10):
+            step(i)
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        for i in range(steps):
+            loss = step(i)
+        end.record()
+        end.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+        ms = start.elapsed_time(end) / steps
+        assert np.isfinite(float(loss))
+        with tempfile.TemporaryDirectory() as d:
+            with profiling.trace(d):
+                for i in range(5):
+                    step(i)
+                torch.cuda.synchronize()
+            sp = _trace_split(d)
+        b = _train_bound(cfg, B, tr.state.model)
+        r = {k.split("/")[1]: v / 5e3 for k, v in sp["by_range_us"].items()}
+        idle = 1.0 - sp["busy_us"] / sp["span_us"] if sp["span_us"] else None
+        out[label] = dict(ms=ms, wall_ms=wall_ms, steps_per_s=1e3 / ms,
+                          imgs_per_s=1e3 / ms * B, split_ms=r, idle=idle,
+                          **b)
+        print(f"[train] {label} (size {cfg.input_size}, width "
+              f"{cfg.width_mult}, {cfg.num_classes} classes, B={B}): "
+              f"{ms:.4f} ms a step on CUDA events ({1e3 / ms:.2f} steps/s, "
+              f"{1e3 / ms * B:.1f} img/s; host wall {wall_ms:.4f} ms), over "
+              f"{steps} steps after 10 warm-up [{card}]")
+        print(f"[train] {label} traced 5 steps: device ms a step forward "
+              f"{r['forward']:.4f}, backward {r['backward']:.4f}, "
+              f"optimizer {r['optimizer']:.4f}, outside the ranges "
+              f"{sp['other_us'] / 5e3:.4f}; {sp['n_kernels'] / 5:.0f} "
+              f"kernels a step; device idle share "
+              f"{'not measured' if idle is None else f'{idle:.1%}'} of the "
+              f"traced window; bound {b['bound_ms']:.4f} ms "
+              f"({b['bound_by']}; {b['step_gflop']:.2f} GFLOP a step = 3 x "
+              f"{b['fwd_gflop_per_frame']:.4f} GFLOP forward x {B}; "
+              f"{b['bound_ms'] / ms:.1%} of it)")
+        print(f"[train] {label} top device kernels (ms over 5 steps, "
+              f"count): " + "; ".join(
+                  f"{n[:60]} {t / 1e3:.3f} ({c})" for n, (t, c) in sp["top"]))
+        del tr, pool, targets, masks
+        torch.cuda.empty_cache()
+    reps = 20000
+
+    def ann():
+        with profiling.annotate("x"):
+            pass
+
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        ann()
+    ann_us = (time.perf_counter() - t0) / reps * 1e6
+    print(f"[train] one annotate range (record_function + NVTX, no "
+          f"profiler running) costs {ann_us:.2f} us of host; a step opens "
+          f"3 [{card}]")
+    out["annotate_us"] = ann_us
+    return out
+
+
+def phase_train_demo_detector(card: str) -> dict:
+    """11 (c): ``train.pretrained_demo_detector(steps=700)`` on the card
+    with a temporary cache, then held-out AP@0.5 on the 48 frames of
+    ``synthetic_detection_batch(default_rng(999), 48, size=64)`` at least
+    0.75; the second call loads the cache."""
+    import tempfile
+
+    from zybo_rt_sampler_image_detection_torch.models import data, train
+    from zybo_rt_sampler_image_detection_torch.models import eval as ev
+
+    steps = 700
+    imgs, boxes = data.synthetic_detection_batch(
+        np.random.default_rng(999), 48, size=64)
+    with tempfile.TemporaryDirectory() as d:
+        cache = os.path.join(d, "det.pkl")
+        t0 = time.perf_counter()
+        det = train.pretrained_demo_detector(cache_path=cache, steps=steps,
+                                             device="cuda")
+        train_s = time.perf_counter() - t0
+        ap = ev.evaluate_detector(det, imgs, boxes)
+        t0 = time.perf_counter()
+        again = train.pretrained_demo_detector(cache_path=cache,
+                                               device="cuda")
+        load_s = time.perf_counter() - t0
+        ap2 = ev.evaluate_detector(again, imgs, boxes)
+    print(f"[train-demo] pretrained_demo_detector(steps={steps}) on the "
+          f"card: {train_s:.2f} s ({steps / train_s:.1f} steps/s with host "
+          f"targets "
+          f"and uploads), held-out AP@0.5 {ap:.4f} (gate {TRAIN_AP_GATE}); "
+          f"cache load {load_s:.3f} s, AP {ap2:.4f} [{card}]")
+    assert ap >= TRAIN_AP_GATE, f"AP@0.5 {ap:.3f}"
+    assert ap2 == ap
+    return dict(ap=ap, train_s=train_s)
+
+
+def phase_train_recipe(card: str) -> dict:
+    """11 (d): ``train_reference_recipe`` at 416 px, width 1.0, 3
+    classes, B=16, cut to 300 steps (chunks of 100), a pool of 16
+    batches and 64 held-out images; the weights saved, loaded into a
+    ``YoloDetector`` and run.  The gate: the loss falls from the first
+    chunk's end to the last."""
+    import re
+    import tempfile
+
+    from zybo_rt_sampler_image_detection_torch.models import detect, train
+    from zybo_rt_sampler_image_detection_torch.models import yolo
+
+    lines: list = []
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "w.pkl")
+        t0 = time.perf_counter()
+        rep = train.train_reference_recipe(
+            steps=300, batch_size=16, size=416, width=1.0, num_classes=3,
+            pool_batches=16, chunk_steps=100, eval_images=64, map_gate=0.0,
+            weights_out=path, progress=lines.append, device="cuda")
+        total_s = time.perf_counter() - t0
+        det = detect.YoloDetector(model_path=path, cfg=yolo.YoloConfig(
+            input_size=416, width_mult=1.0, num_classes=3), device="cuda")
+        frame = np.zeros((240, 320, 3), np.uint8)
+        dets = det.get_detections(frame, conf_threshold=0.05,
+                                  include_class=True)
+    losses = [float(m.group(1)) for m in
+              (re.search(r"^step \d+/\d+: loss ([0-9.eE+-]+)", ln)
+               for ln in lines) if m]
+    print(f"[train-recipe] 300 steps at 416 px, width 1.0, 3 classes, B=16"
+          f" (pool 16, eval 64): {rep['steps_per_s']} steps/s, "
+          f"{rep['imgs_per_s']} img/s (chunk 2), train {rep['train_s']} s, "
+          f"whole call {total_s:.1f} s; losses at the chunk ends {losses}; "
+          f"final {rep['final_loss']}; held-out mAP@0.5 {rep['map50']} "
+          f"(per class {rep['aps']}); backend {rep['backend']}; the saved "
+          f"weights load and detect ({len(dets)} rows on a blank frame) "
+          f"[{card}]")
+    print(f"[train-recipe] {lines[0]}")
+    assert len(losses) == 3 and losses[-1] < losses[0], losses
+    return rep
+
+
+def phase_demo_record(card: str) -> dict:
+    """11 (e): ``demo record --replay --seconds 1`` from the native
+    emulator at ``Config()`` on loopback; the ``.npy`` holds (mics, the
+    frames of 1 s x 256) float32, not all zero."""
+    import contextlib
+    import io
+    import tempfile
+
+    from zybo_rt_sampler_image_detection_torch.apps import demo
+    from zybo_rt_sampler_image_detection_torch.config import Config
+    from zybo_rt_sampler_image_detection_torch.ingest.streamer import (
+        NativeStreamer)
+
+    cfg = Config()
+    sig = np.tile(_source_frame(cfg, 40, 20), (1, 8))
+    emu = NativeStreamer(cfg, n_arrays=cfg.active_arrays)
+    buf = io.StringIO()
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "rec.npy")
+        emu.start(sig, rate=cfg.sample_rate)
+        try:
+            with contextlib.redirect_stdout(buf):
+                rc = demo.main(["record", "--replay", "--seconds", "1",
+                                "--out", path])
+        finally:
+            emu.stop()
+        rec = np.load(path)
+    n_frames = int(np.ceil(cfg.sample_rate / cfg.n_samples))
+    want = (cfg.n_microphones, n_frames * cfg.n_samples)
+    print(f"[record] demo record 1 s: rc {rc}; {buf.getvalue().strip()}; "
+          f"shape {rec.shape} (want {want}), {rec.dtype}, "
+          f"{int((np.abs(rec).sum(0) > 0).sum() // cfg.n_samples)} frames "
+          f"not all zero [{card}]")
+    assert rc in (None, 0) and rec.shape == want and rec.dtype == np.float32
+    assert rec.any()
+    return dict(shape=rec.shape)
+
+
+def phase_train_all(card: str) -> dict:
+    """Phase 11: (a) to (e)."""
+    parity = phase_train_parity(card)
+    rate = phase_train_throughput(card)
+    demo_det = phase_train_demo_detector(card)
+    recipe = phase_train_recipe(card)
+    rec = phase_demo_record(card)
+    return dict(parity=parity, rate=rate, demo=demo_det, recipe=recipe,
+                record=rec)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
@@ -2308,10 +2688,13 @@ def main() -> int:
     t8 = time.perf_counter()
     fused = phase_fused_all(card)
     t9 = time.perf_counter()
+    phase_train_all(card)
+    t10 = time.perf_counter()
     print(f"[time] build+K1 {t1 - t0:.1f} s, K5 {t2 - t1:.1f} s, K2-4 "
           f"{t3 - t2:.1f} s, live {t4 - t3:.1f} s, full rate+policy "
           f"{t5 - t4:.1f} s, listen {t6 - t5:.1f} s, fft/mvdr "
-          f"{t7 - t6:.1f} s, vision {t8 - t7:.1f} s, fused {t9 - t8:.1f} s")
+          f"{t7 - t6:.1f} s, vision {t8 - t7:.1f} s, fused {t9 - t8:.1f} s, "
+          f"train {t10 - t9:.1f} s")
     # launches: the main path's run (phase 5 live / phase 6 full rate);
     # listen_launches: the combined full-rate stage's run (phase 7);
     # vision_launches: the live stage beside the host fusion chain (9 c);

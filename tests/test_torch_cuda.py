@@ -523,3 +523,58 @@ def test_fd_blocks_per_sm(cuda, bf16, bt):
                              bf16, bt, 512, fc, 106, 2) == n
     cost, stages, n_dg = tk._fd_plan(dev, bf16, bt, 512, fc, 106, 1, 11, 114)
     assert cost >= 1 and 2 <= stages <= tk.MAX_STAGES and 1 <= n_dg <= 114
+
+
+# -- training (no kernel of its own: cuDNN FP32 convs with TF32 off) --------
+
+TRAIN_LOSS_RTOL = 1e-4    # five steps' losses (tests/test_torch_train.py)
+TRAIN_LEAF_RNORM = 3e-4   # every leaf after five steps (test_vision.py:451)
+
+
+def _train_run(device, batches, order):
+    from zybo_rt_sampler_image_detection_torch.models import train, yolo
+
+    cfg = yolo.YoloConfig(input_size=64, width_mult=0.25)
+    tr = train.Trainer(cfg, learning_rate=3e-3, seed=0, device=device)
+    losses = [tr.train_step(im[order], [bx[i] for i in order])
+              for im, bx in batches]
+    return losses, tr.state.variables
+
+
+def _leaves(tree, prefix=()):
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _leaves(tree[k], prefix + (k,))
+    else:
+        yield prefix, np.asarray(tree, np.float64)
+
+
+def test_train_steps_card_match_cpu(cuda):
+    """Five train steps at the demo shape (64 px, width 0.25, B=8) from
+    one seeded init on the card and on the CPU, each in the given batch
+    order and seven fixed permutations of every batch: losses at rtol
+    1e-4 and every leaf within a relative norm of 3e-4 for at least one
+    (card order, CPU order) pair (a near-tie in a max-pool window turns an
+    FP32 gradient one way or the other: tests/test_torch_train.py
+    ``test_five_steps_match_jax``)."""
+    from zybo_rt_sampler_image_detection_torch.models import data
+
+    rng = np.random.default_rng(6)
+    batches = [data.synthetic_detection_batch(rng, 8, 64) for _ in range(5)]
+    orders = [np.arange(8)] + [np.random.default_rng(s).permutation(8)
+                               for s in range(7)]
+    cards = [_train_run("cuda", batches, o) for o in orders]
+    cpus = [_train_run("cpu", batches, o) for o in orders]
+    dists = []
+    for got, got_vars in cards:
+        assert np.isfinite(got).all()
+        gl = dict(_leaves(got_vars))
+        for ref, ref_vars in cpus:
+            rl = dict(_leaves(ref_vars))
+            leaf = max(np.linalg.norm(gl[p] - r)
+                       / max(np.linalg.norm(r), 1e-12)
+                       for p, r in rl.items())
+            loss = np.max(np.abs(np.subtract(got, ref)) / np.abs(ref))
+            dists.append((loss, leaf))
+    assert any(loss < TRAIN_LOSS_RTOL and leaf < TRAIN_LEAF_RNORM
+               for loss, leaf in dists), min(dists, key=lambda d: d[1])

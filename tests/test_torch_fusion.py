@@ -260,17 +260,29 @@ def test_demo_sensorfusion_host(port, extra, capsys):
     assert elapsed < 120.0
 
 
-@pytest.mark.parametrize("flag,item", [
-    # the id the case had among the ten refusals before nine were ported
-    pytest.param(["--pretrain", "40"], "item 11", id="flag9-item 11"),
+@pytest.mark.parametrize("flag,steps", [
+    # the id the case had when --pretrain was the last refused flag
+    pytest.param(["--pretrain", "40"], 40, id="flag9-item 11"),
 ])
-def test_demo_sensorfusion_refuses_later_slices(flag, item):
-    """The argument a later slice owns (``--pretrain``: the training
-    slice) exits non-zero, naming its ROADMAP item, before anything
-    starts."""
-    with pytest.raises(SystemExit, match=f"ROADMAP queue 1 {item}"):
+def test_demo_sensorfusion_refuses_later_slices(flag, steps, monkeypatch):
+    """No argument of ``sensorfusion`` is refused any more: the last one a
+    later slice owned, ``--pretrain N`` (the training slice), now trains
+    the demo detector N steps through
+    ``train.pretrained_demo_detector``.  A stand-in records its
+    arguments and stops the demo there; no packet is needed."""
+    from zybo_rt_sampler_image_detection_torch.models import train
+
+    def stand_in(**kw):
+        raise _Reached("pretrained_demo_detector", kw)
+
+    monkeypatch.setattr(pipeline.Pipeline, "connect", lambda self: 1)
+    monkeypatch.setattr(train, "pretrained_demo_detector", stand_in)
+    with pytest.raises(_Reached) as hit:
         demo.main(["sensorfusion", "--replay", "--preset", "tiny",
-                   "--device", "cpu"] + flag)
+                   "--device", "cpu", "--backend", "python", "--out", ""]
+                  + flag)
+    assert hit.value.kw["steps"] == steps
+    assert str(hit.value.kw["device"]) == "cpu"
 
 
 class _Reached(Exception):

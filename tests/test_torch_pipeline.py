@@ -246,10 +246,14 @@ def test_demo_mimo_headless(capsys):
 
 
 def test_port_imports_without_jax():
-    """The port never imports jax, not even indirectly: the heatmap,
-    listening and FFT/MVDR modules, the vision models, fusion (the
-    compositor too), the fused stage and the demo."""
-    code = ("import sys; sys.modules['jax'] = None; "
+    """The port never imports jax (nor flax, optax, orbax or the JAX
+    package), not even indirectly: the heatmap, listening and FFT/MVDR
+    modules, the vision models and their training, fusion (the
+    compositor too), the fused stage, recording, profiling and the
+    demo."""
+    code = ("import sys; "
+            "sys.modules.update(dict.fromkeys(['jax', 'flax', 'optax', "
+            "'orbax', 'zybo_rt_sampler_image_detection_tpu'])); "
             "import zybo_rt_sampler_image_detection_torch as z; "
             "from zybo_rt_sampler_image_detection_torch.apps import "
             "pipeline, demo; "
@@ -259,14 +263,18 @@ def test_port_imports_without_jax():
             "from zybo_rt_sampler_image_detection_torch import models, "
             "fusion; "
             "from zybo_rt_sampler_image_detection_torch.models import "
-            "detect, yolo, nms, sort, tracking, runner, eval, data; "
+            "detect, yolo, nms, sort, tracking, runner, eval, data, "
+            "train; "
+            "from zybo_rt_sampler_image_detection_torch.utils import "
+            "profiling, recording; "
             "from zybo_rt_sampler_image_detection_torch.apps import web, "
             "fused; "
             "from zybo_rt_sampler_image_detection_torch.fusion import "
             "composite; "
             "from zybo_rt_sampler_image_detection_torch.ingest import "
             "udptools; "
-            "assert not any(m == 'jax' or m.startswith('jax.') "
+            "assert not any(m.split('.')[0] in ('jax', 'flax', 'optax', "
+            "'orbax', 'zybo_rt_sampler_image_detection_tpu') "
             "for m, v in sys.modules.items() if v is not None); "
             "print('ok')")
     res = subprocess.run([sys.executable, "-c", code], capture_output=True,

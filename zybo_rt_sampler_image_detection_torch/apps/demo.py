@@ -15,6 +15,8 @@ Examples::
     python -m zybo_rt_sampler_image_detection_torch.apps.demo fullrate --device cpu --preset tiny --seconds 3
     python -m zybo_rt_sampler_image_detection_torch.apps.demo sensorfusion --replay --camera -2 --out ''
     python -m zybo_rt_sampler_image_detection_torch.apps.demo sensorfusion --replay --camera -2 --listen time --out ''
+    python -m zybo_rt_sampler_image_detection_torch.apps.demo sensorfusion --replay --camera -2 --pretrain 700 --out ''
+    python -m zybo_rt_sampler_image_detection_torch.apps.demo record --replay --seconds 1 --out capture.npy
 
 Ported so far: ``mimo`` (the cv2 heatmap window, or stats when
 ``--headless``; every algorithm, ``fft`` and ``mvdr`` included), ``miso``
@@ -26,8 +28,9 @@ beam from one transfer, ``--audio-only``) and ``emulate`` (parity with
 stage, ``Viewer`` and ``SensorFusionDecider``), ``--composite device``
 (the batched device compositor) and ``--composite fused`` (the default:
 power, detector and compositor in one device program a batch, with
-``--listen time|mvdr`` the gapless beam too).  ``record`` and ``web`` are
-later slices.
+``--listen time|mvdr`` the gapless beam too; ``--pretrain N`` trains the
+demo detector first), and ``record`` (the ``.npy`` capture of
+``PC/record.py``).  ``web`` is a later slice.
 """
 
 from __future__ import annotations
@@ -82,15 +85,20 @@ def _resolve_arrays(args, cfg) -> int:
     return n
 
 
-def _make_pipeline(args, ring_frames: int = 64, audio_sink: str = "null",
-                   audio_path=None):
-    from .pipeline import Pipeline, make_mvdr_stream
-
+def _preset_config(args) -> Config:
     cfg = {"default": Config, "reference": Config.reference,
            "fft": Config.fft_reference,
            "tiny": Config.tiny}[args.preset]()
     if args.port:
         cfg = cfg.replace(udp_port=args.port)
+    return cfg
+
+
+def _make_pipeline(args, ring_frames: int = 64, audio_sink: str = "null",
+                   audio_path=None):
+    from .pipeline import Pipeline, make_mvdr_stream
+
+    cfg = _preset_config(args)
     power_fn = None
     algorithm = args.algorithm
     if algorithm in ("fft", "mvdr") and (args.equiv or args.equiv_kernel):
@@ -228,6 +236,23 @@ def _print_audio_latency(stage, batch: int) -> None:
     if hasattr(stage.sink, "underflow_samples"):
         print(f"mock playback underflow: {stage.sink.underflow_samples} "
               f"samples ({stage.sink.underflow_ms:.1f} ms)")
+
+
+def cmd_record(args):
+    """.npy capture (``PC/record.py``): ``--seconds`` of contiguous frames
+    off the receiver (nothing runs on the device)."""
+    from ..ingest.receiver import Receiver
+    from ..utils import recording
+
+    cfg = _preset_config(args)
+    r = Receiver(cfg, replay_mode=args.replay, backend=args.backend)
+    r.connect()
+    try:
+        path = recording.record_npy(r, args.seconds, args.out)
+        data = np.load(path)
+        print(f"recorded {data.shape} float32 -> {path}")
+    finally:
+        r.disconnect()
 
 
 def cmd_emulate(args):
@@ -396,14 +421,11 @@ def cmd_sensorfusion(args):
     the live single-frame stage); ``--tracker-batch`` > 1 runs one YOLO
     device program per K camera frames.  ``--camera -2`` (the detectable
     moving-object scene) without ``--weights`` takes the committed demo
-    detector.  Exits 1 when fewer than ``--frames`` frames were
+    detector; ``--pretrain N`` trains the demo detector N steps instead
+    (``models.train.pretrained_demo_detector``, cached in
+    ``~/.cache/zrt_demo_detector_torch.pkl`` and loaded from there when
+    present).  Exits 1 when fewer than ``--frames`` frames were
     composited or the fused stage failed."""
-    if args.pretrain:
-        raise SystemExit(
-            "sensorfusion --pretrain needs the port's training slice "
-            "(models/train.py, ROADMAP queue 1 item 11), which the port "
-            "does not have yet; --camera -2 without --weights loads the "
-            "committed demo detector")
     from ..models.detect import YoloDetector, pretrained_demo_detector
     from ..models.yolo import YoloConfig
     from ..utils import imaging
@@ -457,7 +479,11 @@ def cmd_sensorfusion(args):
             from ..utils.viz import _CvCapture
             cam = _CvCapture(args.camera)
         p.start_camera(cam, fps_limit=args.camera_fps)
-        if args.camera == -2 and not args.weights:
+        if args.pretrain:
+            from ..models import train
+            det = train.pretrained_demo_detector(steps=args.pretrain,
+                                                 device=p.device)
+        elif args.camera == -2 and not args.weights:
             det = pretrained_demo_detector(device=p.device)
         else:
             det = YoloDetector(
@@ -606,6 +632,12 @@ def main(argv=None):
                    help="frames per device launch in --fullrate mode")
     p.set_defaults(fn=cmd_miso)
 
+    p = sub.add_parser("record", help="raw .npy capture")
+    _add_common(p)
+    p.add_argument("--seconds", type=float, default=1.0)
+    p.add_argument("--out", default="recording.npy")
+    p.set_defaults(fn=cmd_record)
+
     p = sub.add_parser("emulate", help="software FPGA packet streamer")
     p.add_argument("--npy", default=None)
     p.add_argument("--freq", type=float, default=8000.0)
@@ -695,8 +727,9 @@ def main(argv=None):
     p.add_argument("--camera-fps", type=float, default=60.0,
                    help="camera frame-rate cap")
     p.add_argument("--pretrain", type=int, default=0,
-                   help="train the demo detector N steps first: the "
-                        "training slice, refused until it is ported")
+                   help="train the demo detector N steps first (cached "
+                        "in ~/.cache/zrt_demo_detector_torch.pkl, loaded "
+                        "when present)")
     p.add_argument("--weights", default=None,
                    help="detector weights (.pkl of either package, or "
                         ".npz)")

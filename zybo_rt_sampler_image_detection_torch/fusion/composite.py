@@ -44,6 +44,8 @@ from ..utils.viz import POWER_EXPONENT, jet_lut
 _INV_LN10 = 0.4342944819032518         # 1 / log(10)
 # cv2's BGR -> gray weights, as FP32 values
 _GRAY_W = [float(w) for w in np.array([0.114, 0.587, 0.299], np.float32)]
+# the colour blend's weight as the FP32 value the JAX program multiplies by
+_BLEND_W = float(np.float32(0.9))
 
 
 class CompositeTables(NamedTuple):
@@ -117,7 +119,9 @@ def _fma(a: torch.Tensor, b, c: torch.Tensor) -> torch.Tensor:
     """``a * b + c`` rounded once to FP32, as the fused multiply-add the
     JAX program's compiler emits for a product feeding a sum.  Computed in
     FP64: for pixel-scale operands the product and the sum are exact there,
-    so the one rounding is the FMA's."""
+    so the one rounding is the FMA's.  A scalar ``b`` must be the FP32
+    value the JAX program multiplies by (``float(np.float32(w))``), not
+    the FP64 literal."""
     b = b.double() if isinstance(b, torch.Tensor) else b
     return (a.double() * b).add_(c).float()
 
@@ -381,7 +385,7 @@ class DeviceCompositor:
         # ---- Viewer.loop camera path (visual.py:449-452) ----
         frame = _round_u8_(_bilinear(cams.float(), t.cam))
         if self.heatmap_color:
-            image = _round_u8_(_fma(frame, 0.9, res * 0.9))
+            image = _round_u8_(_fma(frame, _BLEND_W, res * 0.9))
         else:
             image = frame
         canvas = (self._raster_tracks(yolos) if self.max_tracks

@@ -1,8 +1,6 @@
 """Standalone object-detection runner — API parity with the reference's
 ``image-detection/src/run_object_oriented.py`` (ObjectDetection class with
-``run_inference`` / ``run_conf_n_inference``) and ``driver.py``.
-
-``train`` waits for the training slice of the port (ROADMAP queue 1).
+``train`` / ``run_inference`` / ``run_conf_n_inference``) and ``driver.py``.
 """
 
 from __future__ import annotations
@@ -19,6 +17,19 @@ class ObjectDetection:
 
         self.detector = YoloDetector(model_path=model_path, cfg=cfg,
                                      device=device)
+
+    def train(self, dataset, epochs: int = 1, learning_rate: float = 1e-3):
+        """Fine-tune on an iterable of (images, boxes) batches
+        (``run_object_oriented.py:13-19`` wrapped Ultralytics train), on
+        the detector's device."""
+        from .train import Trainer
+
+        trainer = Trainer(self.detector.cfg, learning_rate=learning_rate,
+                          device=self.detector.device)
+        trainer.state.variables = self.detector.variables
+        losses = trainer.fit(dataset, epochs=epochs)
+        self.detector.variables = trainer.state.variables
+        return losses
 
     def run_inference(self, frame: np.ndarray, conf_threshold: float = 0.25):
         """Single-frame detections (``run_object_oriented.py:21-30``)."""

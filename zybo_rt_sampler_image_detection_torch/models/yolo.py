@@ -78,7 +78,15 @@ def fp32_convs():
 
 class ConvBlock(nn.Module):
     """Conv (no bias, "SAME" padding) -> BatchNorm in float32 -> leaky
-    ReLU 0.1."""
+    ReLU 0.1.
+
+    In training mode the BatchNorm is flax's, not ``nn.BatchNorm2d``'s:
+    it normalises with the biased batch variance ``E[y^2] - E[y]^2``, in
+    flax's arithmetic (which keeps FP32 runs of the two packages
+    closest), and moves the running statistics by ``0.97 * old + 0.03 *
+    batch`` with that same biased variance (torch's train mode would
+    update ``running_var`` with the unbiased one, n/(n-1) larger).  Eval
+    mode is ``nn.BatchNorm2d`` on the running statistics."""
 
     def __init__(self, in_ch: int, features: int, kernel: int = 3,
                  dtype: torch.dtype = torch.float32):
@@ -90,8 +98,20 @@ class ConvBlock(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = F.conv2d(x.to(self.dtype), self.conv.weight.to(self.dtype),
-                     padding=self.conv.padding)
-        return F.leaky_relu(self.bn(y.float()), LEAKY_SLOPE)
+                     padding=self.conv.padding).float()
+        if not self.training:
+            return F.leaky_relu(self.bn(y), LEAKY_SLOPE)
+        bn = self.bn
+        mean = y.mean((0, 2, 3))
+        var = ((y * y).mean((0, 2, 3)) - mean * mean).clamp(min=0.0)
+        with torch.no_grad():
+            bn.running_mean.mul_(1.0 - BN_MOMENTUM).add_(mean * BN_MOMENTUM)
+            bn.running_var.mul_(1.0 - BN_MOMENTUM).add_(var * BN_MOMENTUM)
+        # flax's _normalize: (y - mean) * (rsqrt(var + eps) * scale) + bias
+        mul = torch.rsqrt(var + BN_EPS) * bn.weight
+        y = (y - mean[:, None, None]) * mul[:, None, None] \
+            + bn.bias[:, None, None]
+        return F.leaky_relu(y, LEAKY_SLOPE)
 
 
 class TinyYolo(nn.Module):

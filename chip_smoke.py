@@ -105,9 +105,10 @@ Phases (any failure raises, so the exit code is non-zero):
    device ms a batch of the program and of its power / detector /
    composite parts; (c) one batch with the full-width detector
    (``YoloConfig()``, seeded, random BatchNorm statistics); (d) 4 s of
-   ``listen="time"`` and then ``"mvdr"`` (mic batch 64) at line rate: 0
-   underrun frames, audio frames equal to the mic frames beamed, the
-   audio e2e p50/p95, a recorded batch's beams against ``miso_beam`` /
+   ``listen="time"`` and then ``"mvdr"`` (mic batch 64, a ring of four
+   mic batches as the demo sizes it) at line rate: 0 underrun frames,
+   audio frames equal to the mic frames beamed, the audio e2e p50/p95,
+   a recorded batch's beams against ``miso_beam`` /
    ``mvdr_listen_step`` run apart (rtol 1e-4 / atol 1e-7); (e) ``demo
    sensorfusion --replay --frames 30 --out ''`` (the fused default) and
    ``--composite device``, each exiting 0.
@@ -131,6 +132,25 @@ Phases (any failure raises, so the exit code is non-zero):
    ``YoloDetector`` and run, the loss falling; (e) ``demo record
    --replay --seconds 1`` from the native emulator, the ``.npy`` shape
    checked.
+12. The web monitor (``apps/web.py``) at ``Config()`` with
+   ``matmul_precision="high"`` on the card, on loopback, fed by the native
+   emulator at line rate: a 60 s soak of ``/enableBackend1`` with one
+   ``/monitor`` client (VmRSS every 5 s; at most 64 MB of growth after the
+   first 15 s), then ``?fullrate=1``, ``?fused=1``, ``/sound``,
+   ``/sound?beam=mvdr``, ``/enableBackend3`` and ``/enableBackend4`` for
+   4 s each: MJPEG frames/s on the true multipart boundary, ``/metrics``
+   (stage rates and latencies, overlay errors, the JPEG encoder), K1
+   launches (the policy's routes must launch it); a route fails when it
+   serves no frame or its overlay errors grow after its first second.
+13. The device mesh (``parallel/mesh.py``) over ``cuda:0`` as (1, 1) and
+   (2, 2) (and every card when there are more): each sharded power at
+   ``Config()`` against its single-device result at the gates of the JAX
+   package's tests/test_parallel.py, K1 and K2 launches a block, sharded
+   against single-device times in turns; the sharded full-rate stage
+   (K=16, full width, the policy at ``high``: K1 a block) for 4 s at line
+   rate, 0 skipped, 0 gaps, a batch against ``steered_power``;
+   ``Trainer(mesh=(2, 1))`` against ``Trainer()`` on one global batch
+   (loss rtol 1e-4, leaves 3e-4); ``dryrun_multichip(4)``.
 
 The line before the last is a JSON record of the kernels; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -1919,15 +1939,15 @@ def phase_composite(card: str) -> dict:
     return dict(ms=ms, wall_ms=wall, **bd)
 
 
-def _fused_pipeline():
+def _fused_pipeline(ring_frames: int = 64):
     """``Config()`` lerp at ``high`` on the card (the policy picks K1),
-    native ingest on loopback."""
+    native ingest on loopback with a ring of ``ring_frames``."""
     from zybo_rt_sampler_image_detection_torch.apps import pipeline
     from zybo_rt_sampler_image_detection_torch.config import Config
 
     cfg = Config().replace(matmul_precision="high")
     p = pipeline.Pipeline(cfg, "lerp", replay_mode=True, backend="native",
-                          device="cuda")
+                          device="cuda", ring_frames=ring_frames)
     kind, _ = pipeline._select_power_backend(p.tables)
     assert kind == "equiv_kernel", kind
     return cfg, p
@@ -2164,7 +2184,8 @@ class _CountSink:
 def phase_fused_listen(card: str) -> dict:
     """10 (d): the fused stage with ``listen="time"`` and then
     ``listen="mvdr"`` (mic batch 64, K=16), steered at (10°, -5°), 4 s at
-    line rate: 0 underrun frames, audio frames equal to the mic frames the
+    line rate, on the ring ``demo sensorfusion --listen`` sizes (four mic
+    batches): 0 underrun frames, audio frames equal to the mic frames the
     program beamed, the audio e2e p50/p95, and a recorded batch's beams
     against ``miso_beam`` / ``mvdr_listen_step`` run apart on the same
     frames (and the same MVDR state)."""
@@ -2175,7 +2196,9 @@ def phase_fused_listen(card: str) -> dict:
 
     out = {}
     for listen in ("time", "mvdr"):
-        cfg, p = _fused_pipeline()
+        # the ring `demo sensorfusion --listen` sizes: a few cycles of mic
+        # batches (apps/demo.py), not one
+        cfg, p = _fused_pipeline(ring_frames=max(64, 4 * FUSED_MIC_BATCH))
         p.q_yolo = queue.Queue(maxsize=2 * FUSED_BATCH)
         det = detect.pretrained_demo_detector(device="cuda")
         sink = _CountSink()
@@ -2650,6 +2673,340 @@ def phase_train_all(card: str) -> dict:
                 record=rec)
 
 
+# -- phase 12: the web monitor ------------------------------------------------
+
+WEB_ROUTES = ("/enableBackend1?fullrate=1", "/enableBackend1?fused=1",
+              "/sound", "/sound?beam=mvdr", "/enableBackend3",
+              "/enableBackend4")
+# routes whose heatmap runs through the policy (K1 at ``high``)
+WEB_K1_ROUTES = ("/enableBackend1", "/enableBackend1?fullrate=1",
+                 "/enableBackend1?fused=1", "/sound", "/sound?beam=mvdr")
+WEB_SECONDS = 4.0          # MJPEG frames counted a route, after 1 s
+WEB_SOAK_S, WEB_SOAK_WARMUP_S, WEB_SOAK_GROWTH_MB = 60.0, 15.0, 64.0
+MJPEG_BOUNDARY = b"\r\n--frame\r\n"
+
+
+class _MjpegClient:
+    """One /monitor client on its own thread: counts frames on the true
+    multipart boundary (not the bare substring) and keeps the newest
+    part."""
+
+    def __init__(self, url: str):
+        self.frames, self.last = 0, b""
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, args=(url,),
+                                        daemon=True)
+        self._thread.start()
+
+    def _run(self, url: str):
+        import urllib.request
+
+        buf = b""
+        with urllib.request.urlopen(url, timeout=30) as r:
+            while not self._stop.is_set():
+                chunk = r.read1(1 << 16)
+                if not chunk:
+                    break
+                parts = (buf + chunk).split(MJPEG_BOUNDARY)
+                self.frames += len(parts) - 1
+                if len(parts) > 1:
+                    self.last = parts[-2]
+                buf = parts[-1]
+
+    def stop(self):
+        self._stop.set()
+        self._thread.join(timeout=10)
+        assert not self._thread.is_alive(), "the MJPEG client hung"
+
+
+def _vmrss_mb() -> float:
+    with open("/proc/self/status") as f:
+        for line in f:
+            if line.startswith("VmRSS:"):
+                return int(line.split()[1]) / 1024
+    raise RuntimeError("no VmRSS")
+
+
+def _web_stages(rep: dict) -> str:
+    """Each pipeline stage's rate and latency p50 from /metrics."""
+    pipe = rep.get("pipeline", {})
+    parts = [f"{k} {v['rate_hz']}/s p50 {v['latency_p50_ms']} ms"
+             for k, v in pipe.items() if isinstance(v, dict)
+             and "rate_hz" in v]
+    gaps = pipe.get("ingest", {}).get("gaps")
+    return "; ".join(parts) + f"; ingest gaps {gaps}"
+
+
+def _web_jpeg_ok(part: bytes) -> bool:
+    return b"\xff\xd8" in part and part.rstrip(b"\r\n").endswith(b"\xff\xd9")
+
+
+def phase_web(card: str) -> dict:
+    """Phase 12: ``make_server(Config() at high, replay=True, port=0,
+    device="cuda")`` on loopback, fed by the native emulator at line rate.
+    A soak of WEB_SOAK_S on /enableBackend1 with one /monitor client
+    (VmRSS every 5 s, growth after WEB_SOAK_WARMUP_S at most
+    WEB_SOAK_GROWTH_MB), then WEB_ROUTES, each: MJPEG frames/s, /metrics,
+    K1 launches; a route fails when it serves no frame or its overlay
+    errors grow after its first second."""
+    import urllib.request
+
+    from zybo_rt_sampler_image_detection_torch.apps import web
+    from zybo_rt_sampler_image_detection_torch.config import Config
+    from zybo_rt_sampler_image_detection_torch.ingest.streamer import (
+        NativeStreamer)
+    from zybo_rt_sampler_image_detection_torch.ops import equiv_kernel as ek
+
+    cfg = Config().replace(matmul_precision="high")
+    server = web.make_server(cfg, replay=True, port=0, device="cuda")
+    cam = server.camera
+    base = f"http://127.0.0.1:{server.server_address[1]}"
+    threading.Thread(target=server.serve_forever, daemon=True).start()
+
+    def get(path, timeout=300):
+        return urllib.request.urlopen(base + path, timeout=timeout).read()
+
+    def metrics():
+        return json.loads(get("/metrics", 10))
+
+    print(f"[web] {card}; JPEG encoder {cam.jpeg_name}; window "
+          f"{cfg.window_width}x{cfg.window_height}")
+    emu = NativeStreamer(cfg, n_arrays=cfg.active_arrays)
+    emu.start(np.tile(_source_frame(cfg, 40, 20), (1, 8)),
+              rate=cfg.sample_rate)
+    out = {}
+    try:
+        for route in ("/enableBackend1",) + WEB_ROUTES:
+            soak = route == "/enableBackend1"
+            zero_counts()
+            t0 = time.perf_counter()
+            get(route)
+            started = time.perf_counter() - t0
+            client = _MjpegClient(base + "/monitor")
+            time.sleep(1.0)
+            m1, f1, t1 = metrics(), client.frames, time.perf_counter()
+            rss = []
+            if soak:
+                while time.perf_counter() - t1 < WEB_SOAK_S:
+                    time.sleep(5.0)
+                    rss.append((time.perf_counter() - t1, _vmrss_mb()))
+                    print(f"[web-soak] {rss[-1][0]:.0f} s VmRSS "
+                          f"{rss[-1][1]:.1f} MB, {client.frames} frames")
+            else:
+                time.sleep(WEB_SECONDS)
+            m2, f2, t2 = metrics(), client.frames, time.perf_counter()
+            client.stop()
+            launches = ek.equiv_power.launches
+            fps = (f2 - f1) / (t2 - t1)
+            print(f"[web] {route}: started in {started:.2f} s; "
+                  f"{fps:.2f} MJPEG frames/s over {t2 - t1:.1f} s; K1 "
+                  f"launches {launches}; overlay errors "
+                  f"{m1['overlay_errors']} -> {m2['overlay_errors']} "
+                  f"({m2['last_overlay_error'] or '-'}); jpeg {m2['jpeg']}; "
+                  f"{_web_stages(m2)}"
+                  + (f"; fused {json.dumps(m2['fused'])}"
+                     if "fused" in m2 else ""))
+            assert f2 > f1, f"{route}: no MJPEG frame served"
+            assert _web_jpeg_ok(client.last), f"{route}: not a JPEG"
+            assert m2["overlay_errors"] == m1["overlay_errors"], (
+                f"{route}: overlay errors grew")
+            assert m2["running"] and m2["jpeg"] == cam.jpeg_name
+            if route in WEB_K1_ROUTES:
+                assert launches > 0, f"{route}: K1 never launched"
+            out[route] = dict(fps=fps, launches=launches)
+            if soak:
+                after = [mb for t, mb in rss if t >= WEB_SOAK_WARMUP_S]
+                growth = max(after) - after[0]
+                print(f"[web-soak] VmRSS {after[0]:.1f} MB at "
+                      f"{WEB_SOAK_WARMUP_S:.0f} s, max {max(after):.1f} MB "
+                      f"after: growth {growth:.1f} MB (limit "
+                      f"{WEB_SOAK_GROWTH_MB:.0f})")
+                assert growth <= WEB_SOAK_GROWTH_MB, "the monitor's RSS grew"
+        get("/disconnect")
+    finally:
+        server.shutdown()
+        server.server_close()
+        cam.stop()
+        emu.stop()
+    # the NumPy encoder, which a host without cv2 and Pillow serves with
+    from zybo_rt_sampler_image_detection_torch.utils import imaging, jpeg
+
+    frame = imaging.resize(web.SyntheticCamera().read()[1],
+                           (cfg.window_width, cfg.window_height))
+    enc_ms = call_ms(lambda: jpeg.encode(frame), 5)
+    buf = jpeg.encode(frame)
+    print(f"[web] NumPy JPEG encoder on this host: {enc_ms:.1f} ms a "
+          f"{cfg.window_width}x{cfg.window_height} frame ({len(buf)} "
+          f"bytes); the server ran {cam.jpeg_name}")
+    assert _web_jpeg_ok(buf)
+    torch.cuda.empty_cache()
+    return out
+
+
+# -- phase 13: the device mesh ------------------------------------------------
+
+MESH_B = 16
+
+
+def _mesh_gate(label: str, got, ref, rtol: float, atol: float) -> None:
+    a = got.double().cpu().numpy()
+    b = ref.double().cpu().numpy()
+    err = float(np.max(np.abs(a - b) / (atol + rtol * np.abs(b))))
+    print(f"[mesh] {label}: max |got - ref| / (atol + rtol |ref|) = "
+          f"{err:.3f} (rtol {rtol:.0e}, atol {atol:.0e})")
+    assert err <= 1.0, label
+
+
+class _MeshRecorder:
+    """Wraps a sharded stage's program: keeps one batch (its row shards
+    joined on the first device) and its maps."""
+
+    def __init__(self, fn, first):
+        self.fn, self.first, self.calls = fn, first, 0
+        self.x = self.y = None
+
+    def __call__(self, rows):
+        out = self.fn(rows)
+        self.calls += 1
+        if self.x is None and self.calls > 8:
+            self.x = torch.cat([r.to(self.first) for r in rows])
+            self.y = out.clone()
+        return out
+
+
+def phase_mesh(card: str) -> dict:
+    """Phase 13: the mesh over ``cuda:0`` as (1, 1) and (2, 2) (and every
+    card when there are more): each sharded power against its
+    single-device result at the gates of tests/test_parallel.py, K1 and
+    K2 launches a block, sharded against single-device times; the sharded
+    full-rate stage at ``Config()`` for FULLRATE_SECONDS; Trainer(mesh=(2,
+    1)) against Trainer(); dryrun_multichip(4)."""
+    from zybo_rt_sampler_image_detection_torch.apps import pipeline
+    from zybo_rt_sampler_image_detection_torch.config import Config
+    from zybo_rt_sampler_image_detection_torch.models import (
+        data, train, yolo)
+    from zybo_rt_sampler_image_detection_torch.ops import (
+        beamform, equiv_kernel as ek, freq, freq_equiv, fused_kernel as fk)
+    from zybo_rt_sampler_image_detection_torch.parallel import (
+        dryrun, mesh as pm)
+
+    cfg = Config()
+    cfg_h = cfg.replace(matmul_precision="high")
+    t = beamform.make_tables(cfg, "lerp", device="cuda")
+    th = beamform.make_tables(cfg_h, "lerp", device="cuda")
+    g = torch.Generator(device="cuda").manual_seed(13)
+    x = torch.randn((MESH_B, cfg.n_microphones, cfg.n_samples),
+                    device="cuda", generator=g) * 0.05
+    ref, ref_h = beamform.steered_power(x, t), beamform.steered_power(x, th)
+    et = freq_equiv.make_equiv_tables(t)
+    ref_eq = freq_equiv.equiv_steered_power(x, et)
+    ft = freq.make_freq_tables(cfg, 100.0, device="cuda")
+    ref_fft = freq.fft_steered_power(x, ft)
+    ref_maps, _ = freq.mvdr_maps_scan(freq.init_precision(ft), x, ft)
+    k1_single = ek.FusedEquivBeamformer(th)
+    k2_single = fk.FusedBeamformer(t)
+    dev0 = torch.device("cuda", 0)
+    meshes = [("(1, 1) cuda:0", pm.make_mesh(1, 1, devices=[dev0])),
+              ("(2, 2) cuda:0 x4", pm.make_mesh(2, 2, devices=[dev0] * 4))]
+    if torch.cuda.device_count() > 1:
+        meshes.append(("every card", pm.make_mesh()))
+    out = {}
+    for label, m in meshes:
+        n = m.devices.size
+        st = pm.shard_tables(t, m)
+        _mesh_gate(f"{label} sharded_steered_power",
+                   pm.sharded_steered_power(m, st)(x), ref, 1e-6, 1e-12)
+        k2 = pm.sharded_fused_power(m, st)
+        zero_counts()
+        got = k2(x)
+        torch.cuda.synchronize()
+        n2 = fk.fused_power.launches
+        _mesh_gate(f"{label} sharded_fused_power (K2)", got, ref, 1e-4,
+                   1e-10)
+        k1 = pm.sharded_equiv_kernel_power(m, th)
+        zero_counts()
+        got, got5 = k1(x), k1(x[:5])
+        torch.cuda.synchronize()
+        n1 = ek.equiv_power.launches
+        _mesh_gate(f"{label} sharded_equiv_kernel_power (K1) B={MESH_B}",
+                   got, ref_h, 5e-5, 1e-8)
+        _mesh_gate(f"{label} sharded_equiv_kernel_power (K1) B=5", got5,
+                   ref_h[:5], 5e-5, 1e-8)
+        assert n2 == n and n1 == 2 * n, (n1, n2)
+        _mesh_gate(f"{label} sharded_equiv_power vs single",
+                   pm.sharded_equiv_power(m, pm.shard_equiv_tables(et, m))(
+                       x), ref_eq, 1e-5, 1e-9)
+        _mesh_gate(f"{label} sharded_fft_power",
+                   pm.sharded_fft_power(m, ft)(x), ref_fft, 1e-6, 1e-12)
+        stp, _ = pm.shard_freq_tables(ft, m, axes=("data", "model"))
+        maps, _ = pm.sharded_mvdr_maps_scan(
+            pm.shard_precision_state(freq.init_precision(stp.tables), m),
+            x, stp)
+        _mesh_gate(f"{label} sharded MVDR maps", maps, ref_maps, 1e-4, 1e-9)
+        k1_ms, k1_one = in_turns(lambda: k1_single(x), lambda: k1(x), 10)
+        k2_ms, k2_one = in_turns(lambda: k2_single(x), lambda: k2(x), 10)
+        print(f"[mesh] {label}: per call {n1 // 2 // n} K1 and {n2 // n} "
+              f"K2 launch(es) a block, {n} blocks; B={MESH_B} K1 sharded "
+              f"{k1_ms:.3f} ms vs one device {k1_one:.3f}; K2 sharded "
+              f"{k2_ms:.3f} ms vs {k2_one:.3f} (CUDA events, {card})")
+        out[label] = dict(k1_launches=n1, k2_launches=n2, k1_ms=k1_ms,
+                          k1_single_ms=k1_one, k2_ms=k2_ms,
+                          k2_single_ms=k2_one)
+        del st, k1, k2, stp, maps
+        torch.cuda.empty_cache()
+
+    # the mesh's main path: the sharded full-rate stage through the policy
+    m = meshes[1][1]
+    p = pipeline.Pipeline(cfg_h, "lerp", replay_mode=True, backend="native",
+                          device="cuda")
+    stage = p.make_heatmap_batched(batch=FULLRATE_BATCH, mesh=m,
+                                   sink=lambda powers, first_seq: None)
+    stage.power_fn = rec = _MeshRecorder(stage.power_fn, m.first)
+    stage.warmup()
+    rec.x = rec.y = None
+    rec.calls = 0
+    launches, elapsed, sent, marks = _line_rate(
+        p, stage, (ek.equiv_power, "launches"))
+    gaps = p.receiver.native_stats.gaps
+    print(f"[mesh-fullrate] {meshes[1][0]}: processed {stage.processed} "
+          f"frames in {elapsed:.2f} s ({stage.processed / elapsed:.1f}/s); "
+          f"skipped {stage.skipped}; ingest gaps {gaps}; K1 launches "
+          f"{launches} ({launches / max(rec.calls, 1):.1f} a batch); "
+          f"emulator {sent / FULLRATE_SECONDS:.0f} pkt/s")
+    assert stage.processed > 0 and stage.skipped == 0 and gaps == 0
+    assert launches == m.devices.size * rec.calls, (launches, rec.calls)
+    assert rec.x is not None, "no batch recorded"
+    _mesh_gate("sharded full-rate batch vs plain FP32 steered_power",
+               rec.y, beamform.steered_power(rec.x, th), E2E_RTOL, 0.0)
+    out["fullrate_launches"] = launches
+    del p, stage, rec
+    zero_counts()
+    pm.sharded_fused_power(m, pm.shard_tables(t, m))(x)
+    torch.cuda.synchronize()
+    out["time_launches"] = fk.fused_power.launches
+
+    # data-parallel training on one global batch
+    ycfg = yolo.YoloConfig(input_size=64, width_mult=0.25)
+    images, boxes = data.synthetic_detection_batch(
+        np.random.default_rng(6), 8, 64)
+    single = train.Trainer(ycfg, learning_rate=3e-3, device="cuda")
+    sharded = train.Trainer(ycfg, learning_rate=3e-3,
+                            mesh=pm.make_mesh(2, 1, devices=[dev0] * 2))
+    l1 = single.train_step(images, boxes)
+    l2 = sharded.train_step(images, boxes)
+    a, b = (_leaf_dict(tr.state.variables) for tr in (single, sharded))
+    leaf = max(np.linalg.norm(b[k] - v) / max(np.linalg.norm(v), 1e-12)
+               for k, v in a.items())
+    print(f"[mesh-train] Trainer(mesh=(2, 1)) vs Trainer(): loss {l2:.6f} "
+          f"vs {l1:.6f} (rel {abs(l2 - l1) / abs(l1):.2e}, gate 1e-4); "
+          f"worst leaf {leaf:.2e} (gate 3e-4)")
+    assert abs(l2 - l1) <= 1e-4 * abs(l1) and leaf <= 3e-4
+    print(f"[mesh-dryrun] "
+          f"{json.dumps(dryrun.dryrun_multichip(4, devices=[dev0] * 4))}")
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
@@ -2690,16 +3047,24 @@ def main() -> int:
     t9 = time.perf_counter()
     phase_train_all(card)
     t10 = time.perf_counter()
+    web_out = phase_web(card)
+    t11 = time.perf_counter()
+    mesh_out = phase_mesh(card)
+    t12 = time.perf_counter()
     print(f"[time] build+K1 {t1 - t0:.1f} s, K5 {t2 - t1:.1f} s, K2-4 "
           f"{t3 - t2:.1f} s, live {t4 - t3:.1f} s, full rate+policy "
           f"{t5 - t4:.1f} s, listen {t6 - t5:.1f} s, fft/mvdr "
           f"{t7 - t6:.1f} s, vision {t8 - t7:.1f} s, fused {t9 - t8:.1f} s, "
-          f"train {t10 - t9:.1f} s")
+          f"train {t10 - t9:.1f} s, web {t11 - t10:.1f} s, mesh "
+          f"{t12 - t11:.1f} s")
     # launches: the main path's run (phase 5 live / phase 6 full rate);
     # listen_launches: the combined full-rate stage's run (phase 7);
     # vision_launches: the live stage beside the host fusion chain (9 c);
     # fused_launches: inside FusedSensorStage (10 b, the rgb run);
-    # fused_listen_launches: the same with listen="time" (10 d)
+    # fused_listen_launches: the same with listen="time" (10 d);
+    # web_launches: the web monitor's /enableBackend1 soak (12);
+    # mesh_launches: K1 in the sharded full-rate stage on the (2, 2) mesh,
+    # K2 in one sharded_fused_power call on it (13)
     kernels = [dict(name="equiv_power", route="cuda", source=KERNEL_SOURCE,
                     replaces=KERNEL_REPLACES, launches=live["equiv"],
                     listen_launches=listen["equiv"]["launches"],
@@ -2708,12 +3073,15 @@ def main() -> int:
                     fused_launches=fused["fused"]["rgb"]["launches"],
                     fused_listen_launches=fused["listen"]["time"][
                         "launches"],
+                    web_launches=web_out["/enableBackend1"]["launches"],
+                    mesh_launches=mesh_out["fullrate_launches"],
                     **main_k)]
     kernels.append(dict(
         name="time_power", route="cuda", source=TIME_SOURCE,
         replaces=TIME_REPLACES[0], also_replaces=TIME_REPLACES[1:],
         launches=full["fused"]["launches"],
-        listen_launches=listen["fused"]["launches"], **main_t))
+        listen_launches=listen["fused"]["launches"],
+        mesh_launches=mesh_out["time_launches"], **main_t))
     kernels.append(dict(
         name="equiv_power_fd", route="cuda", source=FD_SOURCE,
         replaces=FD_REPLACES, launches=full["fd"]["launches"], **main_fd))

@@ -578,3 +578,135 @@ def test_train_steps_card_match_cpu(cuda):
             dists.append((loss, leaf))
     assert any(loss < TRAIN_LOSS_RTOL and leaf < TRAIN_LEAF_RNORM
                for loss, leaf in dists), min(dists, key=lambda d: d[1])
+
+
+# -- the device mesh on the card ----------------------------------------------------
+
+def _card_mesh(cuda, n_data, n_model):
+    """A mesh of ``cuda:0`` repeated: every block's kernel launches on the
+    one card."""
+    from zybo_rt_sampler_image_detection_torch.parallel import mesh
+
+    return mesh.make_mesh(n_data, n_model,
+                          devices=[torch.device("cuda", 0)] * (n_data
+                                                               * n_model))
+
+
+@pytest.mark.parametrize("shape", [(1, 1), (2, 2), (4, 2), (2, 4)])
+@pytest.mark.parametrize("B", [8, 5])
+def test_sharded_kernels_launch_per_block(cuda, shape, B):
+    """K1 (``sharded_equiv_kernel_power``) and K2 (``sharded_fused_power``)
+    launch once a block a call and equal the single-device product at the
+    JAX gates (tests/test_parallel.py: rtol 5e-5 / atol 1e-8 and rtol 1e-4
+    / atol 1e-10)."""
+    from zybo_rt_sampler_image_detection_torch.parallel import mesh
+
+    cfg = Config.tiny().replace(matmul_precision="high")
+    t = tb.make_tables(cfg, "lerp", cache=False, device=cuda)
+    x = torch.from_numpy(_frames(cfg, B, seed=2)).to(cuda)
+    ref = tb.steered_power(x, t).cpu().numpy()
+    m = _card_mesh(cuda, *shape)
+    blocks = shape[0] * shape[1]
+    k1 = mesh.sharded_equiv_kernel_power(m, t)
+    before = tk.equiv_power.launches
+    got = k1(x)
+    torch.cuda.synchronize()
+    assert tk.equiv_power.launches == before + blocks
+    np.testing.assert_allclose(got.cpu().numpy(), ref, rtol=5e-5, atol=1e-8)
+    k2 = mesh.sharded_fused_power(m, mesh.shard_tables(t, m))
+    before = tf.fused_power.launches
+    got = k2(x)
+    torch.cuda.synchronize()
+    assert tf.fused_power.launches == before + blocks
+    np.testing.assert_allclose(got.cpu().numpy(), ref, rtol=1e-4,
+                               atol=1e-10)
+
+
+def test_sharded_reference_shape_parity(cuda):
+    """At Config() (57x32 grid, 256 mics, lerp T=49) over a (2, 4) mesh:
+    the exact product sharded equals one device (rtol 1e-6), the kernel a
+    block (rtol 1e-4), and every block's plan is the one
+    ``fused_kernel.plan`` gives for its shard (the port's counterpart of
+    JAX's chunked-T selection at the reference shard shape)."""
+    from zybo_rt_sampler_image_detection_torch.parallel import mesh
+
+    cfg = Config()
+    t = tb.make_tables(cfg, "lerp", device=cuda)
+    x = torch.from_numpy(_frames(cfg, 2, seed=1)).to(cuda)
+    ref = tb.steered_power(x, t)
+    m = _card_mesh(cuda, 2, 4)
+    st = mesh.shard_tables(t, m)
+    got = mesh.sharded_steered_power(m, st)(x)
+    np.testing.assert_allclose(got.cpu().numpy(), ref.cpu().numpy(),
+                               rtol=1e-6, atol=1e-12)
+    fn = mesh.sharded_fused_power(m, st)
+    np.testing.assert_allclose(fn(x).cpu().numpy(), ref.cpu().numpy(),
+                               rtol=1e-4, atol=1e-10)
+    for key, p in fn.plans(2).items():
+        b = fn.beamformers[key]
+        assert b.launch_plan(1) == p and b.TK < t.n_taps_line
+
+
+def test_trainer_mesh_on_card_matches_single(cuda):
+    """Trainer(mesh=(2, 1) over cuda:0) against Trainer(device="cuda") on
+    one global batch: loss rtol 1e-4, every leaf within 3e-4."""
+    from zybo_rt_sampler_image_detection_torch.models import data, train, yolo
+
+    cfg = yolo.YoloConfig(input_size=64, width_mult=0.25)
+    images, boxes = data.synthetic_detection_batch(
+        np.random.default_rng(6), 8, 64)
+    single = train.Trainer(cfg, learning_rate=3e-3, device="cuda")
+    sharded = train.Trainer(cfg, learning_rate=3e-3,
+                            mesh=_card_mesh(cuda, 2, 1))
+    l1 = single.train_step(images, boxes)
+    l2 = sharded.train_step(images, boxes)
+    assert abs(l2 - l1) <= TRAIN_LOSS_RTOL * abs(l1)
+    rl = dict(_leaves(single.state.variables))
+    gl = dict(_leaves(sharded.state.variables))
+    worst = max(np.linalg.norm(gl[p] - r) / max(np.linalg.norm(r), 1e-12)
+                for p, r in rl.items())
+    assert worst < TRAIN_LEAF_RNORM, worst
+
+
+def test_dryrun_multichip_on_card(cuda):
+    from zybo_rt_sampler_image_detection_torch.parallel import dryrun
+
+    out = dryrun.dryrun_multichip(4, devices=[torch.device("cuda", 0)] * 4)
+    assert out["mesh"] == [2, 2] and np.isfinite(out["train_loss"])
+
+
+def test_web_monitor_on_card(cuda):
+    """The web monitor on the card at the tiny preset's ``high`` rung: the
+    pad backend runs K1, /monitor serves JPEGs, /metrics names the
+    encoder.  UDP port 22187."""
+    import json
+    import threading
+    import urllib.request
+
+    from zybo_rt_sampler_image_detection_torch.apps import web
+    from zybo_rt_sampler_image_detection_torch.ingest import streamer
+
+    cfg = Config.tiny().replace(udp_port=22187, matmul_precision="high")
+    streamer.stream_in_background(
+        cfg, list(_frames(cfg, 3000, seed=4)), n_arrays=1, delay=0.5,
+        exact_reference=False, rate=cfg.sample_rate)
+    server = web.make_server(cfg, replay=True, port=0, device="cuda")
+    port = server.server_address[1]
+    threading.Thread(target=server.serve_forever, daemon=True).start()
+    try:
+        before = tk.equiv_power.launches
+        urllib.request.urlopen(f"http://127.0.0.1:{port}/enableBackend1",
+                               timeout=60).read()
+        req = urllib.request.urlopen(f"http://127.0.0.1:{port}/monitor",
+                                     timeout=15)
+        data = req.read(200000)
+        req.close()
+        assert data.count(b"\r\n--frame\r\n") >= 1 and b"\xff\xd8" in data
+        rep = json.loads(urllib.request.urlopen(
+            f"http://127.0.0.1:{port}/metrics", timeout=5).read())
+        assert rep["running"] and rep["jpeg"] in ("cv2", "pil", "numpy")
+        assert tk.equiv_power.launches > before
+    finally:
+        server.shutdown()
+        server.server_close()
+        server.camera.stop()

@@ -249,8 +249,9 @@ def test_port_imports_without_jax():
     """The port never imports jax (nor flax, optax, orbax or the JAX
     package), not even indirectly: the heatmap, listening and FFT/MVDR
     modules, the vision models and their training, fusion (the
-    compositor too), the fused stage, recording, profiling and the
-    demo."""
+    compositor too), the fused stage, recording, profiling, the demo, the
+    web monitor with its JPEG encoder, and the device mesh with its dry
+    run."""
     code = ("import sys; "
             "sys.modules.update(dict.fromkeys(['jax', 'flax', 'optax', "
             "'orbax', 'zybo_rt_sampler_image_detection_tpu'])); "
@@ -273,6 +274,9 @@ def test_port_imports_without_jax():
             "composite; "
             "from zybo_rt_sampler_image_detection_torch.ingest import "
             "udptools; "
+            "from zybo_rt_sampler_image_detection_torch.utils import jpeg; "
+            "from zybo_rt_sampler_image_detection_torch.parallel import "
+            "mesh, dryrun; "
             "assert not any(m.split('.')[0] in ('jax', 'flax', 'optax', "
             "'orbax', 'zybo_rt_sampler_image_detection_tpu') "
             "for m, v in sys.modules.items() if v is not None); "

@@ -78,7 +78,7 @@ def _detector_pair(size=64, width=0.25, classes=2, max_det=8, seed=0):
     jdet = jdetect.YoloDetector(cfg=jcfg, max_det=max_det)
     jdet.variables = v
     det = detect.YoloDetector(cfg=_port_cfg(jcfg), max_det=max_det,
-                              device="cpu")
+                            device="cpu")
     det.variables = v
     return jdet, det
 
@@ -128,7 +128,8 @@ def test_heads_and_decode_match_jax(size, width, classes, batch):
 
 def test_forward_and_decode_shapes():
     cfg = yolo.YoloConfig(input_size=64, width_mult=0.25, num_classes=2)
-    m = yolo.init_params(cfg, torch.Generator().manual_seed(0))
+    m = yolo.init_params(cfg, torch.Generator().manual_seed(0),
+                         device="cpu")
     with torch.no_grad():
         heads = m(torch.zeros(2, 64, 64, 3))
     assert heads[0].shape == (2, 2, 2, 3 * 7)     # /32
@@ -144,12 +145,14 @@ def test_variables_round_trip_and_seeded_init():
     """state_dict -> JAX layout -> state_dict is exact, the JAX module runs
     on the port's seeded weights, and one seed gives the same weights."""
     cfg = yolo.YoloConfig(input_size=64, width_mult=0.25, num_classes=2)
-    m = yolo.init_params(cfg, torch.Generator().manual_seed(7))
+    m = yolo.init_params(cfg, torch.Generator().manual_seed(7),
+                         device="cpu")
     v = yolo.state_dict_to_variables(m.state_dict())
     sd = yolo.variables_to_state_dict(v)
     for k, t in m.state_dict().items():
         assert torch.equal(sd[k], t), k
-    again = yolo.init_params(cfg, torch.Generator().manual_seed(7))
+    again = yolo.init_params(cfg, torch.Generator().manual_seed(7),
+                         device="cpu")
     for k, t in again.state_dict().items():
         assert torch.equal(m.state_dict()[k], t), k
     jcfg = jyolo.YoloConfig(input_size=64, width_mult=0.25, num_classes=2)

@@ -1,6 +1,6 @@
 """CLI entry point — the ``mimo`` heatmap demo, the ``miso`` listening
-demo, the full-rate proof, the packet emulator and the sensor-fusion
-demo.
+demo, the full-rate proof, the packet emulator, the sensor-fusion demo
+and the MJPEG web monitor.
 
 Examples::
 
@@ -17,6 +17,7 @@ Examples::
     python -m zybo_rt_sampler_image_detection_torch.apps.demo sensorfusion --replay --camera -2 --listen time --out ''
     python -m zybo_rt_sampler_image_detection_torch.apps.demo sensorfusion --replay --camera -2 --pretrain 700 --out ''
     python -m zybo_rt_sampler_image_detection_torch.apps.demo record --replay --seconds 1 --out capture.npy
+    python -m zybo_rt_sampler_image_detection_torch.apps.demo web --replay --http-port 8000
 
 Ported so far: ``mimo`` (the cv2 heatmap window, or stats when
 ``--headless``; every algorithm, ``fft`` and ``mvdr`` included), ``miso``
@@ -29,8 +30,10 @@ stage, ``Viewer`` and ``SensorFusionDecider``), ``--composite device``
 (the batched device compositor) and ``--composite fused`` (the default:
 power, detector and compositor in one device program a batch, with
 ``--listen time|mvdr`` the gapless beam too; ``--pretrain N`` trains the
-demo detector first), and ``record`` (the ``.npy`` capture of
-``PC/record.py``).  ``web`` is a later slice.
+demo detector first), ``record`` (the ``.npy`` capture of
+``PC/record.py``) and ``web`` (the MJPEG monitor of ``apps/web.py`` on
+``--http-port``, fed by the UDP stream on ``--port``).  Every subcommand
+runs on the card unless ``--device cpu``.
 """
 
 from __future__ import annotations
@@ -602,6 +605,14 @@ def _start_fused(args, p, compositor, det, disp, tkw, listen):
     return p.run_stage(stage)
 
 
+def cmd_web(args):
+    from .web import serve
+
+    serve(replay=args.replay, port=args.http_port, headless_camera=True,
+          device=args.device, cfg=_preset_config(args))
+    return 0
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(prog="zybo-rt-torch")
     sub = ap.add_subparsers(dest="cmd", required=True)
@@ -757,6 +768,11 @@ def main(argv=None):
     p.add_argument("--width", type=int, default=640)
     p.add_argument("--height", type=int, default=360)
     p.set_defaults(fn=cmd_sensorfusion)
+
+    p = sub.add_parser("web", help="MJPEG web app")
+    _add_common(p)
+    p.add_argument("--http-port", type=int, default=8000)
+    p.set_defaults(fn=cmd_web)
 
     args = ap.parse_args(argv)
     return args.fn(args)

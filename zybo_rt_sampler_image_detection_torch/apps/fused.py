@@ -49,7 +49,7 @@ from ..fusion.composite import (DeviceCompositor, _bilinear, _resize_tables,
 from ..fusion.decider import SensorFusionDecider
 from ..ops import beamform
 from ..utils import imaging
-from ..utils.metrics import PipelineMetrics
+from ..utils.metrics import PipelineMetrics, history
 from .pipeline import (AudioLeg, Stage, _batched_power_program, _pad_full,
                        _rect_conf)
 
@@ -222,14 +222,14 @@ class FusedSensorStage(Stage):
         self.processed = 0
         self.skipped = 0
         self.frames = 0
-        self.latency_ms: list = []
+        self.latency_ms = history()
         self.light: Optional[float] = None
         self.conf: Optional[float] = None
         # the finisher's exception, if it died (the stage then stops)
         self.error: Optional[BaseException] = None
         # host seconds a batch of each leg: report() gives the p50s, so a
         # slow run names its leg
-        self.phase_s: dict = {k: [] for k in
+        self.phase_s: dict = {k: history() for k in
                               ("collect", "pack", "put", "dispatch",
                                "fetch", "unpack", "track")}
 
@@ -480,6 +480,9 @@ class FusedSensorStage(Stage):
         now = time.perf_counter()
         tracks = None
         tt0 = time.perf_counter()
+        show_batch = getattr(self.display, "show_batch", None)
+        if show_batch is not None:
+            show_batch(comps[:n])          # one bulk handover, no copies
         for i in range(n):
             rows = []
             for row, ok in zip(dets[i], mask[i]):
@@ -490,7 +493,8 @@ class FusedSensorStage(Stage):
             tracks, kept = self.tracker.step_with_detections(
                 cam_frames[i], rows)
             self._rect_conf = _rect_conf(tracks, kept, self._rect_conf)
-            self.display.show(comps[i])
+            if show_batch is None:
+                self.display.show(comps[i])
             self.latency_ms.append((now - t_ready[i]) * 1e3)
         self.phase_s["track"].append(time.perf_counter() - tt0)
         # boxes for the NEXT batch's composite (one-batch staleness)

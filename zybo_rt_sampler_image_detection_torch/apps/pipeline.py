@@ -48,7 +48,7 @@ from ..config import Config
 from ..ingest.receiver import Receiver
 from ..ops import beamform
 from ..utils import audio as audio_mod
-from ..utils.metrics import PipelineMetrics
+from ..utils.metrics import PipelineMetrics, history
 
 # Byte cap for the equiv paths' response planes, reckoned as the JAX
 # package's two FP32 planes of (F, 2M, D): 16*D*M*F.  The port's kernels
@@ -316,6 +316,26 @@ def _batched_power_program(tables, n_full):
     return lambda frames: fn(_pad_full(frames, n_full))
 
 
+def _sharded_power_program(mesh, tables):
+    """The mesh's twin of :func:`_batched_power_program`: the same backend
+    policy (:func:`_select_power_backend`), each launch running the
+    sharded form of the chosen path (``parallel.mesh``) on row shards the
+    stage uploaded to the data devices.  Full-width f32 frames only."""
+    from ..parallel import mesh as mesh_mod
+
+    kind, obj = _select_power_backend(tables)
+    if kind == "equiv_kernel":
+        return mesh_mod.sharded_equiv_kernel_power(mesh, tables)
+    if kind == "freq_equiv":
+        return mesh_mod.sharded_equiv_power(
+            mesh, mesh_mod.shard_equiv_tables(obj, mesh))
+    if kind == "fused":
+        return mesh_mod.sharded_fused_power(
+            mesh, mesh_mod.shard_tables(tables, mesh))
+    return mesh_mod.sharded_steered_power(
+        mesh, mesh_mod.shard_tables(tables, mesh))
+
+
 def _identity(x):
     return x
 
@@ -398,13 +418,23 @@ class BatchedStage(Stage):
     as ``stamps``.  Accounting: ``processed`` frames through the device,
     ``skipped`` frames the ring overwrote unread (0 = full rate
     sustained), ``metric`` per-batch latency.
+
+    With a ``mesh`` (``parallel.mesh.Mesh``) the batch splits over its
+    ``data`` axis at upload: one ``non_blocking`` copy from one pinned
+    host buffer to each data device, and ``launch`` gets the list of row
+    shards.  The batch must divide the data axis.
     """
 
     def __init__(self, name: str, receiver: Receiver,
                  metrics: PipelineMetrics, batch: int, channels: int = 0,
                  transfer: str = "f32", device="cuda",
-                 max_rate: float = 0.0):
+                 max_rate: float = 0.0, mesh=None):
         super().__init__(name, metrics)
+        if mesh is not None and batch % mesh.shape["data"]:
+            raise ValueError(
+                f"batch ({batch}) must divide the data axis "
+                f"({mesh.shape['data']}) for sharded transfers")
+        self.mesh = mesh
         if batch > receiver.ring_frames:
             # fail fast: read_batch would raise inside the stage thread,
             # killing it silently while the pipeline runs output-less
@@ -459,22 +489,34 @@ class BatchedStage(Stage):
         tensor ``launch`` returns gets its own pinned host tensor; one
         event marks all of their copies done."""
         x = torch.from_numpy(batch)
-        if self.device.type != "cuda":
+        if self.mesh is not None:
+            devs = self.mesh.data_devices()
+            if self.device.type != "cuda":
+                return self.launch([r.to(d) for r, d in
+                                    zip(x.chunk(len(devs)), devs)]), None
+            # the caching host allocator keeps the pinned block until the
+            # copies out of it are done
+            host = x.pin_memory()
+            out = self.launch([r.to(d, non_blocking=True) for r, d in
+                               zip(host.chunk(len(devs)), devs)])
+            compute = torch.cuda.current_stream(self.device)
+        elif self.device.type != "cuda":
             out = self.launch(x.to(self.device, self.transfer_dtype))
             return out, None
-        slot = self._slot_for(tuple(x.shape))
-        slot.copied.synchronize()         # the pinned buffer is free again
-        slot.host.copy_(x)                # host copy (f16 rounding here)
-        compute = torch.cuda.current_stream(self.device)
-        with torch.cuda.stream(self._copy_stream):
-            if slot.used:                 # the device buffer's last reader
-                self._copy_stream.wait_event(slot.read)
-            slot.dev.copy_(slot.host, non_blocking=True)
-            slot.copied.record(self._copy_stream)
-        compute.wait_event(slot.copied)
-        out = self.launch(slot.dev)
-        slot.read.record(compute)
-        slot.used = True
+        else:
+            slot = self._slot_for(tuple(x.shape))
+            slot.copied.synchronize()     # the pinned buffer is free again
+            slot.host.copy_(x)            # host copy (f16 rounding here)
+            compute = torch.cuda.current_stream(self.device)
+            with torch.cuda.stream(self._copy_stream):
+                if slot.used:             # the device buffer's last reader
+                    self._copy_stream.wait_event(slot.read)
+                slot.dev.copy_(slot.host, non_blocking=True)
+                slot.copied.record(self._copy_stream)
+            compute.wait_event(slot.copied)
+            out = self.launch(slot.dev)
+            slot.read.record(compute)
+            slot.used = True
         outs = out if isinstance(out, tuple) else (out,)
         hosts = tuple(torch.empty(o.shape, dtype=o.dtype, pin_memory=True)
                       for o in outs)
@@ -566,21 +608,34 @@ class BatchedHeatmapProducer(BatchedStage):
     beamformed frames, ``skipped`` counts frames the ring overwrote unread
     (the drop metric; 0 = full rate sustained), ``metric`` records
     per-batch latency.
+
+    ``mesh``: split every batch over the mesh's ``data`` axis and launch
+    the sharded form of the production policy
+    (:func:`_sharded_power_program`); exclusive with ``power_fn``, and
+    only for full-width f32 transfers.
     """
 
     def __init__(self, receiver: Receiver, tables, q_power: queue.Queue,
                  metrics: PipelineMetrics, batch: int = 16,
                  power_fn=None, sink=None, channels: int = 0,
-                 transfer: str = "f32", max_rate: float = 0.0):
+                 transfer: str = "f32", max_rate: float = 0.0, mesh=None):
         super().__init__("heatmap_batched", receiver, metrics, batch,
-                         channels, transfer, device=tables.device,
-                         max_rate=max_rate)
+                         channels, transfer,
+                         device=tables.device if mesh is None else mesh.first,
+                         max_rate=max_rate, mesh=mesh)
         self.tables = tables
         self.q_power = q_power
         self.sink = sink or self._default_sink
         self.stateful_fn = power_fn
         n_full = receiver.cfg.n_microphones
-        if power_fn is None:
+        if mesh is not None:
+            if power_fn is not None:
+                raise ValueError("mesh and power_fn are exclusive")
+            if channels or transfer != "f32":
+                raise ValueError("sharded transfers need full-width f32 "
+                                 "batches (channels=0, transfer='f32')")
+            power_fn = _sharded_power_program(mesh, tables)
+        elif power_fn is None:
             power_fn = _batched_power_program(tables, n_full)
         elif ((channels and channels < n_full) or transfer != "f32") \
                 and not getattr(power_fn, "pads_in_program", False):
@@ -665,8 +720,8 @@ class AudioLeg:
         self.n_samples = n_samples
         self.underrun_frames = 0
         self.samples = 0
-        self.lat_oldest_ms: list = []
-        self.lat_newest_ms: list = []
+        self.lat_oldest_ms = history()
+        self.lat_newest_ms = history()
 
     def write(self, beams: np.ndarray, skipped: int, stamps=None):
         if skipped:
@@ -1067,17 +1122,22 @@ class Pipeline:
 
     def make_heatmap_batched(self, batch: int = 16, sink=None,
                              channels: int = 0, transfer: str = "f32",
-                             max_rate: float = 0.0):
+                             max_rate: float = 0.0, mesh=None):
         """Build (but don't start) the full-line-rate stage, so callers can
         :meth:`BatchedHeatmapProducer.warmup` before any packets flow and
         :meth:`run_stage` it after :meth:`connect`.  ``max_rate``
         (frames/s) throttles it for a display consumer (see
-        :class:`BatchedStage`)."""
+        :class:`BatchedStage`).  ``mesh``: split every batch over the
+        mesh's ``data`` axis and launch the sharded production program."""
+        if mesh is not None and self._power_fn is not None:
+            raise ValueError("mesh is exclusive with a configured "
+                             "power_fn/power_backend")
         return BatchedHeatmapProducer(self.receiver, self.tables,
                                       self.q_power, self.metrics,
                                       batch=batch, power_fn=self._power_fn,
                                       sink=sink, channels=channels,
-                                      transfer=transfer, max_rate=max_rate)
+                                      transfer=transfer, max_rate=max_rate,
+                                      mesh=mesh)
 
     def run_stage(self, s):
         self.stages.append(s)
@@ -1085,12 +1145,13 @@ class Pipeline:
         return s
 
     def start_heatmap_batched(self, batch: int = 16, sink=None,
-                              warmup: bool = True, max_rate: float = 0.0):
+                              warmup: bool = True, max_rate: float = 0.0,
+                              mesh=None):
         """Full-line-rate variant of :meth:`start_heatmap`: every frame
         beamformed in K-frame device batches (at most ``max_rate``
-        frames/s when it is set)."""
+        frames/s when it is set; over ``mesh`` when it is given)."""
         s = self.make_heatmap_batched(batch=batch, sink=sink,
-                                      max_rate=max_rate)
+                                      max_rate=max_rate, mesh=mesh)
         if warmup:
             s.warmup()
         return self.run_stage(s)

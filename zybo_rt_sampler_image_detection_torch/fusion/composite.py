@@ -38,6 +38,7 @@ import torch.nn.functional as F_
 
 from ..ops.beamform import resolve_device
 from ..utils import imaging
+from ..utils.metrics import history
 from ..utils.viz import POWER_EXPONENT, jet_lut
 
 
@@ -472,7 +473,7 @@ class DeviceViewer:
         self.display = display
         self.batch = int(batch)
         self.frames = 0
-        self.latency_ms: list = []
+        self.latency_ms = history()
         self.light: Optional[float] = None
         self.conf: Optional[float] = None
 
@@ -590,8 +591,12 @@ class DeviceViewer:
         comps = host.numpy()
         m = host_meta.numpy()
         now = time.perf_counter()
+        show_batch = getattr(self.display, "show_batch", None)
+        if show_batch is not None:
+            show_batch(comps[:n])          # one bulk handover, no copies
         for i in range(n):
-            self.display.show(comps[i])
+            if show_batch is None:
+                self.display.show(comps[i])
             self.latency_ms.append((now - t_ready[i]) * 1e3)
         self.frames += n
         self.light = float(m[n - 1, 0])

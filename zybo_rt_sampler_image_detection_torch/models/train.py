@@ -141,12 +141,28 @@ def yolo_loss(cfg: YoloConfig, heads, targets, masks,
 class Trainer:
     """``device`` defaults to the card (``"cuda"`` raises without a GPU);
     the weights start from :func:`yolo.init_params` with ``seed``, as the
-    detector's do."""
+    detector's do.
+
+    ``mesh`` (``parallel.mesh.Mesh``): data parallel over its ``data``
+    axis, with the JAX package's semantics (its ``jit`` with batch
+    ``in_shardings`` computes the one-device step on the global batch).
+    The weights and the optimiser live on the mesh's first device; each
+    step splits the batch over the data devices, runs the forward of each
+    row shard on its device with the weights moved there, takes
+    BatchNorm's batch statistics over the global batch
+    (:meth:`yolo.TinyYolo.forward_shards`), gathers the heads on the
+    first device for one loss (``npos`` over the global batch), and the
+    gradients reach the one copy of the weights through autograd across
+    the moves: one AdamW step a step.  The batch must divide the data
+    axis."""
 
     def __init__(self, cfg: Optional[YoloConfig] = None,
                  learning_rate: float = 1e-3, seed: int = 0,
-                 device="cuda"):
+                 device="cuda", mesh=None):
         self.cfg = cfg or YoloConfig()
+        self.mesh = mesh
+        if mesh is not None:
+            device = mesh.first
         self.device = resolve_device(device)
         model = init_params(self.cfg, torch.Generator().manual_seed(seed),
                             self.device).train()
@@ -160,12 +176,18 @@ class Trainer:
         and the backward with FP32 convs (cuDNN reads the TF32 flag when
         the backward runs), then AdamW, each an ``annotate`` range
         (``train/forward``, ``train/backward``, ``train/optimizer``) for
-        ``utils.profiling.trace``.  Returns the loss tensor."""
+        ``utils.profiling.trace``.  ``images`` may be a list of row shards
+        on the mesh's data devices.  Returns the loss tensor."""
         model, opt = self.state.model, self.state.optimizer
         opt.zero_grad(set_to_none=True)
         with fp32_convs():
             with annotate("train/forward"):
-                loss = yolo_loss(self.cfg, model(images), targets, masks)
+                if isinstance(images, list):
+                    heads = [torch.cat([h.to(self.device) for h in shards])
+                             for shards in model.forward_shards(images)]
+                else:
+                    heads = model(images)
+                loss = yolo_loss(self.cfg, heads, targets, masks)
             with annotate("train/backward"):
                 loss.backward()
         with annotate("train/optimizer"):
@@ -179,7 +201,16 @@ class Trainer:
         dev = self.device
         targets = tuple(torch.as_tensor(t, device=dev) for t, _ in tm)
         masks = tuple(torch.as_tensor(m, device=dev) for _, m in tm)
-        images = torch.as_tensor(np.asarray(images, np.float32), device=dev)
+        images = torch.as_tensor(np.asarray(images, np.float32))
+        if self.mesh is None:
+            images = images.to(dev)
+        else:
+            devs = self.mesh.data_devices()
+            if len(images) % len(devs):
+                raise ValueError(f"batch ({len(images)}) must divide the "
+                                 f"data axis ({len(devs)})")
+            images = [r.to(d) for r, d in
+                      zip(images.chunk(len(devs)), devs)]
         return float(self._step(images, targets, masks))
 
     def fit(self, dataset, epochs: int = 1, log_every: int = 10):
@@ -511,6 +542,22 @@ def main(argv=None):
         device=args.device)
     print(json.dumps(report))
     sys.exit(0 if report["gate_ok"] else 1)
+
+
+def dryrun_train_step(mesh) -> float:
+    """One data-parallel training step over ``mesh`` at the demo shape
+    (64 px, width 0.25), as the JAX package's dry run takes it; returns the
+    loss, which must be finite."""
+    cfg = YoloConfig(input_size=64, width_mult=0.25)
+    trainer = Trainer(cfg, mesh=mesh)
+    B = max(2, mesh.shape["data"]) * 2
+    rng = np.random.default_rng(0)
+    images = rng.random((B, 64, 64, 3), np.float32)
+    boxes = [np.array([[8.0, 8.0, 40.0, 40.0, 0.0]]) for _ in range(B)]
+    loss = trainer.train_step(images, boxes)
+    if not np.isfinite(loss):
+        raise RuntimeError(f"dry-run training step: loss {loss}")
+    return loss
 
 
 if __name__ == "__main__":

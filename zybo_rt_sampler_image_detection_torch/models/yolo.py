@@ -113,6 +113,36 @@ class ConvBlock(nn.Module):
             + bn.bias[:, None, None]
         return F.leaky_relu(y, LEAKY_SLOPE)
 
+    def forward_shards(self, xs: list) -> list:
+        """The training forward over the row shards of one batch (a tensor
+        a data device): each shard's conv on its device against the
+        weights moved there, the BatchNorm over the GLOBAL batch — the
+        per-shard sums and sums of squares added on the weights' device,
+        the biased variance from them — as one device's forward on the
+        whole batch computes it, up to the order of the sums."""
+        if not self.training:
+            raise RuntimeError("forward_shards is the training forward")
+        bn = self.bn
+        dev0 = bn.weight.device
+        ys = [F.conv2d(x.to(self.dtype),
+                       self.conv.weight.to(x.device, self.dtype),
+                       padding=self.conv.padding).float() for x in xs]
+        n = sum(y.numel() // y.shape[1] for y in ys)
+        mean = sum(y.sum((0, 2, 3)).to(dev0) for y in ys) / n
+        sq = sum((y * y).sum((0, 2, 3)).to(dev0) for y in ys) / n
+        var = (sq - mean * mean).clamp(min=0.0)
+        with torch.no_grad():
+            bn.running_mean.mul_(1.0 - BN_MOMENTUM).add_(mean * BN_MOMENTUM)
+            bn.running_var.mul_(1.0 - BN_MOMENTUM).add_(var * BN_MOMENTUM)
+        mul = torch.rsqrt(var + BN_EPS) * bn.weight
+        out = []
+        for y in ys:
+            d = y.device
+            y = (y - mean.to(d)[:, None, None]) * mul.to(d)[:, None, None] \
+                + bn.bias.to(d)[:, None, None]
+            out.append(F.leaky_relu(y, LEAKY_SLOPE))
+        return out
+
 
 class TinyYolo(nn.Module):
     """Backbone + 2-scale detection heads.
@@ -140,22 +170,43 @@ class TinyYolo(nn.Module):
 
     def _head(self, conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
         dt = self.cfg.dtype
-        y = F.conv2d(x.to(dt), conv.weight.to(dt), conv.bias.to(dt))
+        y = F.conv2d(x.to(dt), conv.weight.to(x.device, dt),
+                     conv.bias.to(x.device, dt))
         # NCHW -> NHWC before any reshape of the channel axis
         return y.permute(0, 2, 3, 1).contiguous()
 
-    def forward(self, x: torch.Tensor) -> list:
-        b = self.blocks
-        x = x.permute(0, 3, 1, 2)                       # NHWC -> NCHW
+    def _graph(self, xs: list, block) -> list:
+        """The network over a list of row shards; ``block(i, xs)`` runs
+        block i on them.  Returns the two heads, each a list of shards."""
+        def each(fn, *shards):
+            return [fn(*z) for z in zip(*shards)]
+
+        def pool(x):
+            return F.max_pool2d(x, 2, 2)
+
+        xs = each(lambda x: x.permute(0, 3, 1, 2), xs)  # NHWC -> NCHW
         for i in range(4):                              # /1 -> /16
-            x = F.max_pool2d(b[i](x), 2, 2)
-        x16 = b[4](x)
-        x = F.max_pool2d(x16, 2, 2)                     # /32
-        x = b[6](b[5](x))
-        out32 = self._head(self.head32, b[7](x))
-        up = F.interpolate(b[8](x), scale_factor=2, mode="nearest")
-        out16 = self._head(self.head16, b[9](torch.cat([up, x16], dim=1)))
+            xs = each(pool, block(i, xs))
+        x16 = block(4, xs)
+        xs = block(6, block(5, each(pool, x16)))        # /32
+        out32 = each(lambda x: self._head(self.head32, x), block(7, xs))
+        up = each(lambda x: F.interpolate(x, scale_factor=2, mode="nearest"),
+                  block(8, xs))
+        out16 = each(lambda x: self._head(self.head16, x),
+                     block(9, each(lambda u, s: torch.cat([u, s], dim=1),
+                                   up, x16)))
         return [out32, out16]
+
+    def forward(self, x: torch.Tensor) -> list:
+        heads = self._graph([x], lambda i, xs: [self.blocks[i](xs[0])])
+        return [h[0] for h in heads]
+
+    def forward_shards(self, xs: list) -> list:
+        """The training forward of one batch cut into row shards, each on
+        its device (:meth:`ConvBlock.forward_shards`: BatchNorm over the
+        whole batch).  Returns the heads, each a list of shards."""
+        return self._graph(
+            xs, lambda i, shards: self.blocks[i].forward_shards(shards))
 
 
 def decode_head(raw: torch.Tensor, anchors, stride: int, num_classes: int
@@ -196,12 +247,16 @@ def decode_all(cfg: YoloConfig, heads: Sequence[torch.Tensor]):
 
 
 def init_params(cfg: YoloConfig, generator: torch.Generator,
-                device="cpu") -> TinyYolo:
-    """A :class:`TinyYolo` in eval mode on ``device``, its weights drawn on
-    the host from ``generator`` (flax's defaults: LeCun-normal conv kernels
-    truncated at two standard deviations, zero head biases, BatchNorm at
-    scale 1, bias 0, mean 0, variance 1), so one seed gives the same
-    weights on every device."""
+                device="cuda") -> TinyYolo:
+    """A :class:`TinyYolo` in eval mode on ``device`` (the card unless
+    ``device="cpu"``; without a GPU ``"cuda"`` raises), its weights drawn
+    on the host from ``generator`` (flax's defaults: LeCun-normal conv
+    kernels truncated at two standard deviations, zero head biases,
+    BatchNorm at scale 1, bias 0, mean 0, variance 1), so one seed gives
+    the same weights on every device."""
+    from ..ops.beamform import resolve_device
+
+    device = resolve_device(device)
     model = TinyYolo(cfg)
     with torch.no_grad():
         for m in model.modules():

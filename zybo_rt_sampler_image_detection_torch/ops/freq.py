@@ -60,6 +60,10 @@ class FreqTables:
     res_x: int
     res_y: int
     n_samples: int
+    # (F,) int64 rfft bins of the F steering rows, set only on tables laid
+    # out for a mesh (``parallel.mesh.shard_freq_tables``), whose padded
+    # rows repeat the last bin; None: the bins ``[lo, hi)``
+    bins: Optional[torch.Tensor] = None
 
     @property
     def device(self) -> torch.device:
@@ -130,7 +134,10 @@ def _frame_fft(signals: torch.Tensor, t: FreqTables) -> torch.Tensor:
     active mics, bins ``[lo, hi)`` (angle -2 pi n f / N, the JAX package's
     DFT bases)."""
     s = signals[:, t.adaptive, :]
-    return torch.fft.rfft(s, dim=-1)[..., t.lo:t.hi].transpose(1, 2)
+    spec = torch.fft.rfft(s, dim=-1)
+    spec = (spec[..., t.lo:t.hi] if t.bins is None
+            else spec.index_select(-1, t.bins))
+    return spec.transpose(1, 2)
 
 
 def _check_grid(grid_precision: str) -> None:
@@ -656,6 +663,9 @@ def _apply_beam_weights(signals, t: FreqTables,
     the irfft of the spectrum that is zero outside ``[lo, hi)`` (the JAX
     package's band-limited inverse-DFT bases: c_f = 1 at DC and Nyquist,
     2 elsewhere, over N)."""
+    if t.bins is not None:
+        raise ValueError("beam weights need the band [lo, hi), not the "
+                         "padded bins of tables laid out for a mesh")
     S = _frame_fft(signals, t)                                  # (B, F, M)
     spec = torch.zeros(S.shape[0], t.n_samples // 2 + 1, dtype=S.dtype,
                        device=S.device)

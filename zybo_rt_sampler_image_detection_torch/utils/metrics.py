@@ -16,6 +16,16 @@ from dataclasses import dataclass
 from typing import Dict, Optional
 
 
+# samples of a per-frame or per-batch history a long-running stage keeps
+# for its percentiles (the newest ones): a server runs for hours
+HISTORY = 4096
+
+
+def history() -> collections.deque:
+    """A bounded history for a stage's latency percentiles."""
+    return collections.deque(maxlen=HISTORY)
+
+
 class StageMetrics:
     def __init__(self, name: str, window: int = 256):
         self.name = name

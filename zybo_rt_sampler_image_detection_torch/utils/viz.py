@@ -364,6 +364,13 @@ class ArrayDisplay:
         if len(self.frames) > self.keep:
             self.frames.pop(0)
 
+    def show_batch(self, imgs):
+        """Append a whole (K, H, W, 3) batch the caller relinquishes,
+        without a copy a frame (the fused stages hand over a freshly
+        unpacked buffer they never touch again)."""
+        self.frames.extend(np.asarray(imgs))
+        del self.frames[:-self.keep]
+
 
 class ArrayCapture:
     """Headless camera replaying a list of frames."""

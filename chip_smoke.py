@@ -2540,8 +2540,8 @@ def phase_train_throughput(card: str) -> dict:
     for _ in range(reps):
         ann()
     ann_us = (time.perf_counter() - t0) / reps * 1e6
-    print(f"[train] one annotate range (record_function + NVTX, no "
-          f"profiler running) costs {ann_us:.2f} us of host; a step opens "
+    print(f"[train] one annotate span with no profiler recording (off: "
+          f"a flag check) costs {ann_us:.2f} us of host; a step opens "
           f"3 [{card}]")
     out["annotate_us"] = ann_us
     return out

@@ -710,3 +710,26 @@ def test_web_monitor_on_card(cuda):
         server.shutdown()
         server.server_close()
         server.camera.stop()
+
+
+def test_spans_off_under_a_cuda_only_profile(cuda):
+    """A profile of CUDA activity alone (the benchmark's kernel clock)
+    leaves the spans off; one that records CPU activity turns them on,
+    with a fresh report."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from zybo_rt_sampler_image_detection_torch.utils import profiling
+
+    x = torch.ones(1024, device="cuda")
+    with profile(activities=[ProfilerActivity.CUDA]):
+        assert profiling.annotate("x") is profiling.annotate("y")
+        with profiling.annotate("cuda.only"):
+            (x * 2).sum()
+        torch.cuda.synchronize()
+    assert "cuda.only" not in profiling.report()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        with profiling.annotate("cpu.too"):
+            (x * 2).sum()
+        torch.cuda.synchronize()
+    rep = profiling.report()
+    assert set(rep) == {"cpu.too"} and rep["cpu.too"]["n"] == 1

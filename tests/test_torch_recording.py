@@ -6,7 +6,7 @@
 * ``get_recording``'s skip policies on a fake receiver, equal to the JAX
   package's;
 * a profiler trace writes its Chrome trace with the annotated ranges;
-  ``Stopwatch``;
+  the spans' aggregate (``profiling.report``);
 * ``demo sensorfusion --pretrain 20 --device cpu`` and ``demo record
   --device cpu`` exit 0.
 
@@ -163,15 +163,19 @@ def test_profiler_trace_writes_artifacts(tmp_path):
     assert any("mm" in str(n) for n in names)
 
 
-def test_stopwatch():
-    sw = profiling.Stopwatch()
-    for _ in range(3):
-        with sw.section("work"):
-            time.sleep(0.002)
-    rep = sw.report()
+def test_stopwatch(tmp_path):
+    """The spans' aggregate (``profiling.report``, which took the
+    Stopwatch's place): a name's count, total and longest span, while a
+    profiler records."""
+    with profiling.trace(str(tmp_path)):
+        for _ in range(3):
+            with profiling.annotate("work"):
+                time.sleep(0.002)
+    rep = profiling.report()
     assert rep["work"]["n"] == 3
     assert rep["work"]["total_s"] >= 0.005
-    assert rep["work"]["mean_ms"] >= 1.5
+    assert rep["work"]["max_s"] >= 0.0015
+    assert rep["work"]["self_s"] == rep["work"]["total_s"]
 
 
 def _stream(cfg):

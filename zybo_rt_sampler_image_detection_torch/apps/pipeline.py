@@ -49,6 +49,7 @@ from ..ingest.receiver import Receiver
 from ..ops import beamform
 from ..utils import audio as audio_mod
 from ..utils.metrics import PipelineMetrics, history
+from ..utils.profiling import annotate
 
 # Byte cap for the equiv paths' response planes, reckoned as the JAX
 # package's two FP32 planes of (F, 2M, D): 16*D*M*F.  The port's kernels
@@ -168,13 +169,14 @@ def _pad_full(frames: torch.Tensor, n_full: int) -> torch.Tensor:
     """Device prologue shared by the full-rate stages: upcast f16-transfer
     batches and pad channel-sliced transfers back to the full mic axis
     (the tail rows are always zero).  float64 frames stay float64 (the
-    MVDR stream then runs in complex128)."""
-    if frames.dtype != torch.float64:
-        frames = frames.float()
-    pad = n_full - frames.shape[1]
-    if pad > 0:
-        frames = F_.pad(frames, (0, 0, 0, pad))
-    return frames
+    MVDR stream then runs in complex128).  Span ``power.pad``."""
+    with annotate("power.pad"):
+        if frames.dtype != torch.float64:
+            frames = frames.float()
+        pad = n_full - frames.shape[1]
+        if pad > 0:
+            frames = F_.pad(frames, (0, 0, 0, pad))
+        return frames
 
 
 def make_mvdr_stream(cfg: Config, kind: str = "maps", alpha: float = 0.9,
@@ -364,17 +366,26 @@ class HeatmapProducer(Stage):
         seq = 0
         while not self.stop_event.is_set():
             try:
-                frame, seq = self.receiver.read_frame(fresh=True,
-                                                      last_seq=seq,
-                                                      timeout=1.0)
-            except TimeoutError:
+                with annotate("stage.frame", seq + 1):
+                    seq = self._frame(seq)
+            except TimeoutError:        # no fresh frame in the read's time
                 continue
-            t0 = time.perf_counter()
-            x = torch.from_numpy(frame).to(self.device)
-            power = self.power_fn(x).cpu().numpy()      # waits for the device
-            self.metric.tick(time.perf_counter() - t0)
-            if not put_drop_oldest(self.q_power, (power, seq)):
-                self.metric.drop()
+
+    def _frame(self, seq: int) -> int:
+        """Beamform the newest frame after ``seq`` onto ``q_power``;
+        returns its sequence number."""
+        frame, seq = self.receiver.read_frame(fresh=True, last_seq=seq,
+                                              timeout=1.0)
+        t0 = time.perf_counter()
+        x = torch.from_numpy(frame).to(self.device)
+        with annotate("power.program", seq):
+            power = self.power_fn(x)
+        with annotate("stage.finish_wait", seq):
+            power = power.cpu().numpy()         # waits for the device
+        self.metric.tick(time.perf_counter() - t0)
+        if not put_drop_oldest(self.q_power, (power, seq)):
+            self.metric.drop()
+        return seq
 
 
 class _Slot:
@@ -413,11 +424,17 @@ class BatchedStage(Stage):
     skipped, stamps=None)``, which gets a NumPy array or a tuple of them
     in the same shape, and set ``stateful_fn`` to the device program they
     were given: when it has a ``reset`` (the MVDR stream), :meth:`warmup`
-    calls it.  A subclass that sets ``want_stamps`` gets each
-    batch's per-frame ring publish times (``time.perf_counter`` seconds)
-    as ``stamps``.  Accounting: ``processed`` frames through the device,
-    ``skipped`` frames the ring overwrote unread (0 = full rate
-    sustained), ``metric`` per-batch latency.
+    calls it.  A subclass that sets ``want_stamps`` gets each batch's
+    per-frame ring publish times (``time.perf_counter`` seconds) as
+    ``stamps``.  Spans (``utils.profiling.annotate``), each with the
+    batch's first sequence number: ``stage.batch`` around a loop
+    iteration that read a batch, and inside it ``ingest.read_batch``,
+    ``stage.slot_wait``, ``stage.slot_copy``, ``stage.h2d``,
+    ``power.program``, ``stage.d2h``, then the batch before's
+    ``stage.finish_wait`` and ``stage.consume``.  Accounting:
+    ``processed`` frames through the device, ``skipped`` frames the ring
+    overwrote unread (0 = full rate sustained), ``metric`` per-batch
+    latency.
 
     With a ``mesh`` (``parallel.mesh.Mesh``) the batch splits over its
     ``data`` axis at upload: one ``non_blocking`` copy from one pinned
@@ -462,6 +479,7 @@ class BatchedStage(Stage):
         self._slots = None
         self._next_slot = 0
         self._copy_stream = None
+        self._pending = None              # the batch in flight
         # subclasses that need per-frame ring publish times (the audio
         # e2e latency contract) set this before start()
         self.want_stamps = False
@@ -483,47 +501,57 @@ class BatchedStage(Stage):
                 stamps=None) -> None:
         raise NotImplementedError
 
-    def _dispatch(self, batch: np.ndarray):
+    def _dispatch(self, batch: np.ndarray, first: Optional[int] = None):
         """Copy ``batch`` to the device and launch on it; returns the
         (host output, done event) pair :meth:`_finish` waits on.  Each
         tensor ``launch`` returns gets its own pinned host tensor; one
-        event marks all of their copies done."""
+        event marks all of their copies done.  ``first``: the batch's
+        first sequence number, for the spans (else the enclosing span's)."""
         x = torch.from_numpy(batch)
         if self.mesh is not None:
             devs = self.mesh.data_devices()
             if self.device.type != "cuda":
-                return self.launch([r.to(d) for r, d in
-                                    zip(x.chunk(len(devs)), devs)]), None
+                shards = [r.to(d) for r, d in zip(x.chunk(len(devs)), devs)]
+                with annotate("power.program", first):
+                    return self.launch(shards), None
             # the caching host allocator keeps the pinned block until the
             # copies out of it are done
             host = x.pin_memory()
-            out = self.launch([r.to(d, non_blocking=True) for r, d in
-                               zip(host.chunk(len(devs)), devs)])
+            shards = [r.to(d, non_blocking=True) for r, d in
+                      zip(host.chunk(len(devs)), devs)]
+            with annotate("power.program", first):
+                out = self.launch(shards)
             compute = torch.cuda.current_stream(self.device)
         elif self.device.type != "cuda":
-            out = self.launch(x.to(self.device, self.transfer_dtype))
-            return out, None
+            x = x.to(self.device, self.transfer_dtype)
+            with annotate("power.program", first):
+                return self.launch(x), None
         else:
             slot = self._slot_for(tuple(x.shape))
-            slot.copied.synchronize()     # the pinned buffer is free again
-            slot.host.copy_(x)            # host copy (f16 rounding here)
+            with annotate("stage.slot_wait", first):
+                slot.copied.synchronize()   # the pinned buffer is free again
+            with annotate("stage.slot_copy", first):
+                slot.host.copy_(x)          # host copy (f16 rounding here)
             compute = torch.cuda.current_stream(self.device)
-            with torch.cuda.stream(self._copy_stream):
-                if slot.used:             # the device buffer's last reader
-                    self._copy_stream.wait_event(slot.read)
-                slot.dev.copy_(slot.host, non_blocking=True)
-                slot.copied.record(self._copy_stream)
-            compute.wait_event(slot.copied)
-            out = self.launch(slot.dev)
+            with annotate("stage.h2d", first):
+                with torch.cuda.stream(self._copy_stream):
+                    if slot.used:           # the device buffer's last reader
+                        self._copy_stream.wait_event(slot.read)
+                    slot.dev.copy_(slot.host, non_blocking=True)
+                    slot.copied.record(self._copy_stream)
+                compute.wait_event(slot.copied)
+            with annotate("power.program", first):
+                out = self.launch(slot.dev)
             slot.read.record(compute)
             slot.used = True
-        outs = out if isinstance(out, tuple) else (out,)
-        hosts = tuple(torch.empty(o.shape, dtype=o.dtype, pin_memory=True)
-                      for o in outs)
-        for h, o in zip(hosts, outs):
-            h.copy_(o, non_blocking=True)
-        done = torch.cuda.Event(blocking=True)
-        done.record(compute)
+        with annotate("stage.d2h", first):
+            outs = out if isinstance(out, tuple) else (out,)
+            hosts = tuple(torch.empty(o.shape, dtype=o.dtype,
+                                      pin_memory=True) for o in outs)
+            for h, o in zip(hosts, outs):
+                h.copy_(o, non_blocking=True)
+            done = torch.cuda.Event(blocking=True)
+            done.record(compute)
         return (hosts if isinstance(out, tuple) else hosts[0]), done
 
     def warmup(self):
@@ -544,7 +572,8 @@ class BatchedStage(Stage):
     def _finish(self, pending):
         host, done, first, skipped, t0, stamps = pending
         if done is not None:
-            done.synchronize()                   # batch i-1 is on the host
+            with annotate("stage.finish_wait", first):
+                done.synchronize()               # batch i-1 is on the host
         self.metric.tick(time.perf_counter() - t0)
         if skipped:
             self.skipped += skipped
@@ -552,43 +581,50 @@ class BatchedStage(Stage):
         self.processed += self.batch
         out = (tuple(np.asarray(h) for h in host) if isinstance(host, tuple)
                else np.asarray(host))
-        self.consume(out, first, skipped, stamps)
+        with annotate("stage.consume", first):
+            self.consume(out, first, skipped, stamps)
+
+    def _drain(self):
+        """Finish the batch in flight, if there is one."""
+        pending, self._pending = self._pending, None
+        if pending is not None:
+            self._finish(pending)
+
+    def _step(self, next_seq: int) -> int:
+        """Read the batch at ``next_seq``, copy and launch it, then finish
+        the batch before it; returns the next batch's sequence number.
+        Raises :class:`TimeoutError` (from the read alone) where no batch
+        came."""
+        res = self.receiver.read_batch(
+            self.batch, next_seq, timeout=0.5,
+            channels=self.channels, with_stamps=self.want_stamps)
+        batch, first, skipped = res[:3]
+        stamps = res[3] if self.want_stamps else None
+        if self._rate_t0 is None:
+            self._rate_t0 = time.perf_counter()
+        t0 = time.perf_counter()
+        host, done = self._dispatch(batch, first)   # copy + launch, no wait
+        self._drain()                               # batch i-1, in order
+        self._pending = (host, done, first, skipped, t0, stamps)
+        return first + self.batch
 
     def run(self):
         # stream-start anchor: consume everything the ring still holds,
         # but a pre-start backlog beyond the ring must not count as skips
         next_seq = self.receiver.stream_anchor_seq
-        pending = None
         while not self.stop_event.is_set():
             if self.max_rate and self._rate_t0 is not None:
                 ahead = (self.processed / self.max_rate
                          - (time.perf_counter() - self._rate_t0))
                 if ahead > 0.0:
-                    if pending is not None:
-                        self._finish(pending)   # sync while throttled
-                        pending = None
+                    self._drain()               # sync while throttled
                     time.sleep(min(ahead, 0.5))
             try:
-                res = self.receiver.read_batch(
-                    self.batch, next_seq, timeout=0.5,
-                    channels=self.channels, with_stamps=self.want_stamps)
+                with annotate("stage.batch", next_seq):
+                    next_seq = self._step(next_seq)
             except TimeoutError:
-                if pending is not None:
-                    self._finish(pending)
-                    pending = None
-                continue
-            batch, first, skipped = res[:3]
-            stamps = res[3] if self.want_stamps else None
-            next_seq = first + self.batch
-            if self._rate_t0 is None:
-                self._rate_t0 = time.perf_counter()
-            t0 = time.perf_counter()
-            host, done = self._dispatch(batch)   # copy + launch, no wait
-            if pending is not None:
-                self._finish(pending)           # batch i-1, in order
-            pending = (host, done, first, skipped, t0, stamps)
-        if pending is not None:
-            self._finish(pending)
+                self._drain()
+        self._drain()
 
 
 class BatchedHeatmapProducer(BatchedStage):
@@ -1335,6 +1371,7 @@ class Pipeline:
         stats = self.receiver.native_stats
         rep["ingest"] = {"packets": stats.packets, "frames": stats.frames,
                          "gaps": stats.gaps}
+        rep["ingest"].update(self.receiver.ring_counts)
         # full-rate stage accounting (frames through the device, frames
         # the ring overwrote unread, zero-filled audio frames) and the
         # audio sink's late-write and playback-underflow counters

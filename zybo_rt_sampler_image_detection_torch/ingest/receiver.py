@@ -29,6 +29,7 @@ from typing import Optional
 import numpy as np
 
 from ..config import Config
+from ..utils.profiling import annotate
 from . import protocol
 
 
@@ -51,6 +52,12 @@ class FrameRing:
     counter-contiguous batches via :meth:`read_batch` — the full-line-rate
     path the reference's latest-frame snapshot could never offer
     (``receiver.c:94-151`` writes every frame; ``get_data`` samples them).
+
+    Counters for the operator (``Pipeline.report()["ingest"]``):
+    ``published`` frames, ``batches_read`` by :meth:`read_batch`,
+    ``waits`` (the reads that had to wait for their frames) and
+    ``lag_max``, the most frames published but not yet read that a read
+    found.
     """
 
     def __init__(self, n_mics: int, n_samples: int, capacity: int = 64):
@@ -59,10 +66,17 @@ class FrameRing:
         self._cap = capacity
         self._seq = 0
         self._cond = threading.Condition()
+        self.batches_read = 0
+        self.waits = 0
+        self.lag_max = 0
 
     @property
     def capacity(self) -> int:
         return self._cap
+
+    @property
+    def published(self) -> int:
+        return self._seq
 
     def publish(self, frame: np.ndarray) -> None:
         with self._cond:
@@ -103,17 +117,24 @@ class FrameRing:
         (0 when the reader keeps up).  ``channels`` > 0 returns only the
         leading connected rows.  ``with_stamps`` appends the per-frame
         publish times (``time.perf_counter`` seconds) to the tuple.
-        Returns ``(None, next_seq, 0[, None])`` on timeout.
+        Returns ``(None, next_seq, 0[, None])`` on timeout.  Span
+        ``ingest.wait`` around the wait for the frames.
         """
         if not 1 <= k <= self._cap:
             raise ValueError("batch size exceeds the ring capacity")
         next_seq = max(int(next_seq), 1)
         with self._cond:
-            ok = self._cond.wait_for(
-                lambda: self._seq >= next_seq + k - 1, timeout)
+            lag = self._seq - next_seq + 1
+            self.lag_max = max(self.lag_max, lag)
+            if lag < k:
+                self.waits += 1
+            with annotate("ingest.wait", next_seq):
+                ok = self._cond.wait_for(
+                    lambda: self._seq >= next_seq + k - 1, timeout)
             if not ok:
                 return (None, next_seq, 0, None) if with_stamps \
                     else (None, next_seq, 0)
+            self.batches_read += 1
             first = max(next_seq, self._seq - self._cap + 1)
             idx = np.arange(first, first + k) % self._cap
             src = self._buf[idx]            # fancy index = fresh copy
@@ -217,18 +238,20 @@ class Receiver:
                    timeout: Optional[float] = 5.0):
         """Latest complete frame (n_mics, n_samples) float32 with the
         dead-mic mask applied (``get_data`` semantics, ``api.c:830-859``).
-        Returns (frame, seq)."""
-        if self._native is not None:
-            frame, seq = self._native.read_frame(fresh, last_seq, timeout)
-        elif fresh:
-            frame, seq = self.buffer.wait_fresh(last_seq, timeout)
-            if frame is None:
-                raise TimeoutError("no fresh frame within timeout")
-        else:
-            frame, seq = self.buffer.snapshot(out)
-        if self._dead_rows.size:
-            frame[self._dead_rows] = 0.0
-        return frame, seq
+        Returns (frame, seq).  Span ``ingest.read_frame``."""
+        with annotate("ingest.read_frame", last_seq + 1):
+            if self._native is not None:
+                frame, seq = self._native.read_frame(fresh, last_seq,
+                                                     timeout)
+            elif fresh:
+                frame, seq = self.buffer.wait_fresh(last_seq, timeout)
+                if frame is None:
+                    raise TimeoutError("no fresh frame within timeout")
+            else:
+                frame, seq = self.buffer.snapshot(out)
+            if self._dead_rows.size:
+                frame[self._dead_rows] = 0.0
+            return frame, seq
 
     def read_batch(self, k: int, next_seq: int = 1,
                    timeout: Optional[float] = 5.0, channels: int = 0,
@@ -247,24 +270,27 @@ class Receiver:
         CLOCK_MONOTONIC at ring publish) — the packet-side anchor of the
         audio end-to-end latency contract.  Dead-mic mask applied.
         Raises :class:`TimeoutError` when k frames don't arrive in time.
+        Span ``ingest.read_batch`` (with ``ingest.wait`` inside it on the
+        Python ring).
         """
-        if self._native is not None:
-            out = self._native.read_batch(
-                k, next_seq, timeout, channels=channels,
-                with_stamps=with_stamps)
-        else:
-            out = self.buffer.read_batch(
-                k, next_seq, timeout, channels=channels,
-                with_stamps=with_stamps)
-            if out[0] is None:
-                raise TimeoutError("no frame batch within timeout")
-        batch = out[0]
-        dead = self._dead_rows
-        if dead.size:
-            if channels:
-                dead = dead[dead < batch.shape[1]]
-            batch[:, dead] = 0.0
-        return out
+        with annotate("ingest.read_batch", next_seq):
+            if self._native is not None:
+                out = self._native.read_batch(
+                    k, next_seq, timeout, channels=channels,
+                    with_stamps=with_stamps)
+            else:
+                out = self.buffer.read_batch(
+                    k, next_seq, timeout, channels=channels,
+                    with_stamps=with_stamps)
+                if out[0] is None:
+                    raise TimeoutError("no frame batch within timeout")
+            batch = out[0]
+            dead = self._dead_rows
+            if dead.size:
+                if channels:
+                    dead = dead[dead < batch.shape[1]]
+                batch[:, dead] = 0.0
+            return out
 
     # -- python receive loop --------------------------------------------------
 
@@ -338,6 +364,17 @@ class Receiver:
         if self._native is not None:
             return self._native.stats()
         return self.stats
+
+    @property
+    def ring_counts(self) -> dict:
+        """The Python ring's counters (:class:`FrameRing`); empty where
+        the native engine holds the ring, which keeps none of them."""
+        if self._native is not None:
+            return {}
+        ring = self.buffer
+        return {"published": ring.published,
+                "batches_read": ring.batches_read,
+                "waits": ring.waits, "lag_max": ring.lag_max}
 
     @property
     def published_seq(self) -> int:

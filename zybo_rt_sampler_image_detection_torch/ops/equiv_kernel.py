@@ -62,6 +62,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from ..utils.profiling import annotate
 from .beamform import set_fp32_matmul
 from .freq_equiv import EquivFreqTables, make_equiv_tables
 
@@ -770,10 +771,12 @@ class FusedEquivBeamformer:
         if squeeze:
             signals = signals[None]
         B = signals.shape[0]
-        S, sj, bt = self.kernel_inputs(signals)
+        with annotate("power.inputs"):
+            S, sj, bt = self.kernel_inputs(signals)
         args = (S, self.H1, self.ib1, self.ib2, sj, self.wc)
         kw = dict(n_tail=self.n_tail, Tc=self.Tc, inv=self.inv, block_b=bt)
-        power = (equiv_power_fd(*args, n_fc=self.n_fc, **kw) if self.runs_fd
-                 else equiv_power(*args, **kw))                     # (BP, DP)
+        with annotate("power.kernel"):
+            power = (equiv_power_fd(*args, n_fc=self.n_fc, **kw)
+                     if self.runs_fd else equiv_power(*args, **kw))  # (BP, DP)
         power = power[:B, :self.D].reshape(B, self.res_x, self.res_y)
         return power[0] if squeeze else power

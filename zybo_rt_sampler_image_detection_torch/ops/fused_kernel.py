@@ -59,6 +59,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F_
 
+from ..utils.profiling import annotate
 from .beamform import set_fp32_matmul
 from .equiv_kernel import (HeadCorrections, corrections_plain,
                            make_head_corrections)
@@ -474,8 +475,10 @@ class FusedBeamformer:
         if squeeze:
             signals = signals[None]
         B = signals.shape[0]
-        s, sj = self.kernel_inputs(signals)
-        power = fused_power(s, self.Wp, self.bases, sj, self.wc,
-                            **self.kernel_kw)
+        with annotate("power.inputs"):
+            s, sj = self.kernel_inputs(signals)
+        with annotate("power.kernel"):
+            power = fused_power(s, self.Wp, self.bases, sj, self.wc,
+                                **self.kernel_kw)
         power = power[:, :self.D].reshape(B, self.res_x, self.res_y)
         return power[0] if squeeze else power

@@ -78,21 +78,3 @@ class PipelineMetrics:
     def report(self) -> Dict[str, Dict[str, float]]:
         return {k: v.report() for k, v in self.stages.items()}
 
-
-class Timer:
-    """``with metrics.stage('heatmap').time():`` convenience."""
-
-    def __init__(self, stage: StageMetrics):
-        self._stage = stage
-
-    def __enter__(self):
-        self._t0 = time.perf_counter()
-        return self
-
-    def __exit__(self, *exc):
-        self._stage.tick(time.perf_counter() - self._t0)
-        return False
-
-
-def timed(stage: StageMetrics) -> Timer:
-    return Timer(stage)

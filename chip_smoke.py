@@ -270,10 +270,12 @@ def equiv_bound(fk, B: int) -> dict:
 
 
 def describe(ek, fk) -> str:
-    """The route of the class's mode and the table bytes it holds."""
+    """The route of the class's mode at the full-rate batch and the table
+    bytes it holds."""
     h1 = fk.H1.numel() * fk.H1.element_size()
     nnz = 0 if fk.wc is None else fk.wc.val.numel()
-    return (f"route {ek.route(fk.plane_dtype)}; tables held "
+    return (f"route {ek.route(fk.plane_dtype, fk.Tt, FULLRATE_BATCH)}; "
+            f"tables held "
             f"{fk.table_bytes / 1e9:.4f} GB (H1 {h1 / 1e9:.4f} GB, list "
             f"{nnz} entries)")
 
@@ -372,21 +374,33 @@ def phase_card_and_build():
 
 
 def phase_kernel_vs_plain(card: str) -> dict:
+    """K1 against its plain version at Config() (the cfgjson cell's shape)
+    in every mode, then at the onboard64 cell's shape (one 64-channel
+    board, 65x65 grid) on the FP32 route; returns the main path's entry
+    (Config() lerp f32 B=1)."""
     from zybo_rt_sampler_image_detection_torch.config import Config
+
+    main = _k1_vs_plain(card, "Config()", Config(), ("lerp", "hybrid"),
+                        ("f32", "high", "bf16"))
+    _k1_vs_plain(card, "onboard64", Config.northstar(), ("lerp",),
+                 ("f32", "high"))
+    return main
+
+
+def _k1_vs_plain(card: str, label: str, cfg, algos, modes) -> dict:
     from zybo_rt_sampler_image_detection_torch.ops import (
         beamform, equiv_kernel as ek)
 
-    cfg = Config()
     gen = torch.Generator("cuda").manual_seed(1234)
     frames = torch.randn(37, cfg.n_microphones, cfg.n_samples,
                          device="cuda", generator=gen) * 0.05
     main = None
-    for algo in ("lerp", "hybrid"):
+    for algo in algos:
         tables = beamform.make_tables(cfg, algo, device="cuda")
         td = beamform.steered_power(frames, tables)      # exact FP32 product
-        for mode in ("f32", "high", "bf16"):
+        for mode in modes:
             fk = ek.FusedEquivBeamformer(tables, mode=mode)
-            print(f"[K1] {algo:6s} {mode:4s}: {describe(ek, fk)}")
+            print(f"[K1] {label} {algo:6s} {mode:4s}: {describe(ek, fk)}")
             for B in (1, FULLRATE_BATCH, 37):
                 x = frames[:B]
                 S, sj, bt = fk.kernel_inputs(x)
@@ -411,7 +425,7 @@ def phase_kernel_vs_plain(card: str) -> dict:
                     lambda: ek.equiv_power(*args, block_b=bt, **kw), iters)
                 bd = equiv_bound(fk, B)
                 ok = err <= TOL[mode] and (mode != "bf16" or same_peak)
-                print(f"[K1] {algo:6s} {mode:4s} B={B:2d} bt={bt} "
+                print(f"[K1] {label} {algo:6s} {mode:4s} B={B:2d} bt={bt} "
                       f"F={fk.F} Tt={fk.Tt}: max rel err vs plain {err:.3e} "
                       f"(tol {TOL[mode]:.0e}) max abs {abs_err:.3e} "
                       f"same peak {same_peak} | vs time-domain "
@@ -419,10 +433,11 @@ def phase_kernel_vs_plain(card: str) -> dict:
                       f"{p_ms:.4f} ms bmm pair (FP32) {pair_ms:.4f} ms "
                       f"one-plane bmm {one_ms:.4f} ms | bound "
                       f"{bd['bound_ms']:.4f} ms ({bd['bound_by']}, "
-                      f"{bd['bound_ms'] / k_ms:.1%} of it) [{card}]")
+                      f"{bd['bound_ms'] / k_ms:.1%} of it) | route "
+                      f"{ek.equiv_power.last_route} [{card}]")
                 assert ok, f"kernel disagrees with plain: {algo} {mode} B={B}"
                 if (algo, mode, B) == ("lerp", "f32", 1):
-                    # the main path's shape: Config() lerp, highest -> f32
+                    # the main path's shape: lerp, highest -> f32
                     main = dict(max_abs_err=abs_err, ms=k_ms, plain_ms=p_ms,
                                 library_ms=one_ms, **bd)
             del fk

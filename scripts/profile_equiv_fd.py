@@ -10,7 +10,8 @@ Imports nothing of JAX.
     python3 scripts/profile_equiv_fd.py [--iters 10] [--sweep]
 
 ``--sweep`` instead times K1 alone (CUDA events) at every frame tile the
-plan can take and every ring depth that fits, at B=1, 16 and 37: the data
+plan can take and every ring depth that fits (the fused kernel's, or the
+product pass's where K1 takes its two passes), at B=1, 16 and 37: the data
 behind the plan's choices.
 """
 
@@ -77,19 +78,34 @@ def sweep(ek, tables, frames, card: str, iters: int) -> None:
                 S, sj, _ = fk.kernel_inputs(frames[:B], bt)
                 kw = dict(n_tail=fk.n_tail, Tc=fk.Tc, inv=fk.inv, block_b=bt)
                 args = (S, fk.H1, fk.ib1, fk.ib2, sj, fk.wc)
-                auto = ek._k1_plan(S.device, int(mode == "bf16"), bt, fk.Tt,
-                                   fk.KP, fk.JM,
-                                   S.shape[1] // bt * (fk.DP // fk.TD))[1]
+                BP = S.shape[1]
+                if ek.takes_split(fk.plane_dtype, fk.Tt, BP):
+                    # the two passes: the product pass's ring depth
+                    plan = ek.split_plan(S.shape[0], BP, fk.KP, fk.DP,
+                                         fk.Tt, fk.Tc, fk.JM)
+                    auto = plan.stages
+
+                    def smem(ns):
+                        return (ek.split_smem_bytes(plan.fb, plan.nc, ns)
+                                if ns <= fk.KP // 2 // ek.SPLIT_KC
+                                else ek.SMEM_MAX + 1)
+                else:
+                    auto = ek._k1_plan(S.device, int(mode == "bf16"), bt,
+                                       fk.Tt, fk.KP, fk.JM,
+                                       BP // bt * (fk.DP // fk.TD))[1]
+
+                    def smem(ns):
+                        return ek.smem_bytes(bt, fk.Tt, fk.KP, fk.JM, isz, ns)
                 times = []
                 for ns in range(2, ek.MAX_STAGES + 1):
-                    if ek.smem_bytes(bt, fk.Tt, fk.KP, fk.JM, isz,
-                                     ns) > ek.SMEM_MAX:
+                    if smem(ns) > ek.SMEM_MAX:
                         break
                     ms = event_ms(lambda: ek.equiv_power(*args, stages=ns,
                                                          **kw), iters)
                     times.append(f"{ns}{'*' if ns == auto else ''}:{ms:.4f}")
                 print(f"[sweep {tables.algorithm} {mode} B={B}] frame tile "
-                      f"{bt}{' (chosen)' if bt == chosen else ''}: ms by "
+                      f"{bt}{' (chosen)' if bt == chosen else ''}, "
+                      f"{ek.route(fk.plane_dtype, fk.Tt, BP)}: ms by "
                       f"ring stages (* the plan's) {' '.join(times)} "
                       f"[{card}]")
         del fk
@@ -146,6 +162,13 @@ def main() -> int:
                             f.n_fc, n_tiles)
                         plan = (f"n_fc={f.n_fc} fc={f.fc}, {n_dg} direction "
                                 f"groups, {n_bt * f.n_fc * n_dg} blocks")
+                    elif ek.takes_split(f.plane_dtype, f.Tt, n_bt * bt):
+                        sp = ek.split_plan(f.FP, n_bt * bt, f.KP, f.DP, f.Tt,
+                                           f.Tc, f.JM)
+                        ns = sp.stages
+                        plan = (f"two passes, product grid "
+                                f"{sp.product_grid}, fold grid "
+                                f"{sp.fold_grid}")
                     else:
                         waves, ns = ek._k1_plan(x.device, bf16, bt, f.Tt,
                                                 f.KP, f.JM, n_bt * n_tiles)

@@ -157,17 +157,19 @@ def test_wrappers_reject_bad_correction_list(cuda):
 @pytest.mark.parametrize("mode", ["f32", "high", "bf16"])
 def test_bf16_takes_tensor_cores(cuda, mode):
     """The route the library reports for the launch: bf16 on the tensor
-    cores (mma.sync), f32/high FP32 FMAs on the CUDA cores."""
+    cores (mma.sync), f32/high FP32 FMAs on the CUDA cores, in two passes
+    from ``SPLIT_MIN_FRAMES`` padded frames up."""
     t = tb.make_tables(Config.tiny(), "lerp", cache=False, device=cuda)
     fused = tk.FusedEquivBeamformer(t, mode=mode)
-    fused(torch.from_numpy(_frames(Config.tiny(), 2)).to(cuda))
+    B = tk.SPLIT_MIN_FRAMES
+    fused(torch.from_numpy(_frames(Config.tiny(), B)).to(cuda))
     torch.cuda.synchronize()
     route = tk.equiv_power.last_route
-    assert route == tk.route(fused.plane_dtype)
+    assert route == tk.route(fused.plane_dtype, fused.Tt, B)
     if mode == "bf16":
         assert route.startswith("tensor cores") and "mma" in route
     else:
-        assert route.startswith("CUDA cores")
+        assert route.startswith("CUDA cores") and route == tk.SPLIT_ROUTE
 
 
 @pytest.mark.parametrize("bf16", [0, 1])
@@ -194,6 +196,93 @@ def test_auto_policy_picks_kernel_at_high(cuda):
                        device=cuda)
     kind, obj = pipeline._select_power_backend(t)
     assert kind == "equiv_kernel" and obj.mode == "high"
+
+
+# --- K1's FP32 route in two passes (product, then fold and finish) --------
+
+
+def _bench_config(name):
+    """The port's ``Config`` of a benchmark configuration file."""
+    import dataclasses
+    import json
+    import os
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    with open(os.path.join(root, "portbench", "configs", f"{name}.json")) as f:
+        spec = json.load(f)
+    names = {f.name for f in dataclasses.fields(Config)}
+    return Config(**{k: v for k, v in spec.items() if k in names})
+
+
+_SPLIT = {}
+
+
+def _split_fused(cuda, config, algorithm, corrections):
+    """``FusedEquivBeamformer`` at a benchmark configuration's shape (its
+    ``high`` rung) or at ``Config()`` (``f32``), with or without the head
+    corrections; one kept at a time (the tables are large)."""
+    import dataclasses
+
+    key = (config, algorithm, corrections)
+    if key not in _SPLIT:
+        _SPLIT.clear()
+        cfg = Config() if config == "default" else _bench_config(config)
+        et = tk.make_equiv_tables(tb.make_tables(cfg, algorithm, device=cuda))
+        if not corrections:
+            et = dataclasses.replace(et, Wc=None,
+                                     ib_re=et.ib_re[:, :et.n_tail],
+                                     ib_im=et.ib_im[:, :et.n_tail])
+        mode = "f32" if config == "default" else "high"
+        _SPLIT[key] = (cfg, tk.FusedEquivBeamformer(et, mode=mode))
+    return _SPLIT[key]
+
+
+@pytest.mark.parametrize("corrections", [True, False])
+@pytest.mark.parametrize("algorithm", ["lerp", "hybrid"])
+@pytest.mark.parametrize("config", ["cfgjson", "onboard64", "default"])
+def test_split_route_matches_plain(cuda, config, algorithm, corrections):
+    """The FP32 route (the product pass, then the fold and finish) against
+    its plain version at the benchmark cells' shapes and at ``Config()``,
+    at 1, 5, 16 and 37 frames and every frame tile the class can pick, at
+    the K1 gate of the mode; one launch counted a call, the route named
+    (one frame takes the fused kernel)."""
+    cfg, fused = _split_fused(cuda, config, algorithm, corrections)
+    assert (fused.Tc > 0) == corrections
+    for B in (1, 5, 16, 37):
+        x = torch.from_numpy(_frames(cfg, B, seed=B) * 0.5).to(cuda)
+        for bt in _tiles(fused, B):
+            got, ref = _run(fused, x, bt)
+            BP = got.shape[0]
+            assert tk.equiv_power.last_route == (
+                tk.SPLIT_ROUTE if BP >= tk.SPLIT_MIN_FRAMES
+                else "CUDA cores (FP32 FMA)")
+            np.testing.assert_allclose(
+                got.cpu().numpy(), ref.cpu().numpy(), rtol=TOL[fused.mode],
+                atol=1e-14, err_msg=f"B={B} frame tile {bt}")
+
+
+def test_split_route_deterministic(cuda):
+    """No atomics and a fixed order of every sum: two calls agree bit for
+    bit."""
+    cfg, fused = _split_fused(cuda, "onboard64", "lerp", True)
+    x = torch.from_numpy(_frames(cfg, 16)).to(cuda)
+    a, b = fused(x), fused(x)
+    assert torch.equal(a, b)
+
+
+def test_fd_f32_matches_split_route(cuda):
+    """K5 at f32 still equals K1 (now the two passes) on the same inputs,
+    at the onboard64 shape on the auto fd plan."""
+    cfg = _bench_config("onboard64")
+    t = tb.make_tables(cfg, "lerp", device=cuda)
+    fused = tk.FusedEquivBeamformer(t, mode="f32", sweep="fd")
+    assert fused.runs_fd and fused.n_fc > 1
+    x = torch.from_numpy(_frames(cfg, 16)).to(cuda)
+    got, ref, k1 = _run_fd(fused, x)
+    assert tk.equiv_power.last_route == tk.SPLIT_ROUTE
+    for other in (ref, k1):
+        np.testing.assert_allclose(got.cpu().numpy(), other.cpu().numpy(),
+                                   rtol=TOL["f32"], atol=1e-14)
 
 
 # --- fused time-domain power (csrc/time_power.cu) -------------------------

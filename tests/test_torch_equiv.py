@@ -177,6 +177,85 @@ def test_hopper_plan_fits_shared_memory():
                                                     ib_im=huge))
 
 
+def _k1_shapes(cfg, algorithm):
+    """``(F, KP, DP, Tt, Tc, JM)`` of K1 on ``cfg``'s tables, from the
+    time-domain tables alone (``equiv_dims``), as ``FusedEquivBeamformer``
+    pads them."""
+    t = tb.make_tables(cfg, algorithm, cache=False, device="cpu")
+    D, _, M = t.W.shape
+    L, F = tf.equiv_dims(t)
+    Tc = 0 if t.Wc is None else t.Wc.shape[2]
+    JM = 0 if t.Wc is None else len(t.corr_js) * M
+    return (F, tk._round_up(2 * M, tk.K_ALIGN), tk._round_up(D, tk.D_ALIGN),
+            L - t.n_samples + Tc, Tc, JM)
+
+
+def _bench_config(name):
+    import json
+    import os
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    with open(os.path.join(root, "portbench", "configs", f"{name}.json")) as f:
+        spec = json.load(f)
+    names = {f.name for f in dataclasses.fields(Config)}
+    return Config(**{k: v for k, v in spec.items() if k in names})
+
+
+@pytest.mark.parametrize("config", ["default", "northstar", "cfgjson",
+                                    "onboard64"])
+@pytest.mark.parametrize("algorithm", ["lerp", "hybrid"])
+def test_split_plan_fits_shared_memory(config, algorithm):
+    """K1's FP32 route in two passes: every shape the repo's configurations
+    reach, at 1, 16 and 37 frames (padded to each frame tile the class can
+    pick), gets a product pass and a fold pass whose blocks fit 227 KB of
+    shared memory (two product blocks to an SM), fold warps that cover
+    every tail/head sample, and a P buffer that holds Br and Bi of every
+    bin, frame and direction."""
+    cfg = {"default": Config, "northstar": Config.northstar}.get(
+        config, lambda: _bench_config(config))()
+    F, KP, DP, Tt, Tc, JM = _k1_shapes(cfg, algorithm)
+    for B, tiles in ((1, (1,)), (16, (16,)), (37, (8, 16))):
+        for bt in tiles:
+            BP = tk._round_up(B, bt)
+            p = tk.split_plan(F, BP, KP, DP, Tt, Tc, JM)
+            assert p.smem == tk.split_smem_bytes(p.fb, p.nc, p.stages)
+            assert p.smem <= tk.SMEM_MAX and 2 <= p.stages <= tk.MAX_STAGES
+            # two blocks an SM: 228 KB, less 1 KB the runtime keeps a block
+            assert 2 * (p.smem + 1024) <= 233472
+            assert p.stages <= KP // 2 // tk.SPLIT_KC
+            assert p.fold_smem == tk.fold_smem_bytes(p.oq, Tt, Tc, JM)
+            assert p.fold_smem <= tk.SMEM_MAX
+            assert BP % p.fb == 0 and BP % p.oq == 0
+            assert p.fb == max(b for b in tk.FRAME_TILES if BP % b == 0)
+            n_fg, n_dg, n_f = p.product_grid
+            assert n_fg * p.fb == BP and n_f == F
+            assert (n_dg - 1) * 64 * p.nc < DP <= n_dg * 64 * p.nc
+            assert p.nw <= tk.FOLD_MAX_WARPS
+            assert Tt <= tk.FOLD_TQ * p.nw < Tt + tk.FOLD_TQ
+            assert p.fold_grid == (-(-DP // 32), BP // p.oq)
+            # P: Br and Bi of every bin, frame and direction, in direction
+            # blocks of 32 and the fold's frame groups
+            assert p.p_shape == (-(-DP // 32), BP // p.oq, F, 2, p.oq, 32)
+            assert np.prod(p.p_shape) >= F * 2 * BP * DP
+
+
+def test_split_plan_shapes_of_the_benchmark():
+    """The two benchmark cells' shapes at their batch of 16: cfgjson (256
+    mic slots, 57x32 grid) and onboard64 (64 mics, 65x65 grid)."""
+    assert _k1_shapes(_bench_config("cfgjson"), "lerp") == (154, 512, 1824,
+                                                            98, 48, 256)
+    assert _k1_shapes(_bench_config("onboard64"), "lerp") == (139, 128, 4240,
+                                                              38, 18, 64)
+    cfg = tk.split_plan(154, 16, 512, 1824, 98, 48, 256)
+    assert (cfg.fb, cfg.nc, cfg.stages, cfg.oq, cfg.nw) == (16, 3, 2, 4, 13)
+    assert cfg.product_grid == (1, 10, 154) and cfg.fold_grid == (57, 4)
+    ob = tk.split_plan(139, 16, 128, 4240, 38, 18, 64)
+    assert (ob.fb, ob.nc, ob.stages, ob.oq, ob.nw) == (16, 4, 2, 4, 5)
+    assert ob.product_grid == (1, 17, 139) and ob.fold_grid == (133, 4)
+    with pytest.raises(ValueError, match="fold plan"):
+        tk.split_plan(154, 16, 512, 1824, 8000, 48, 256)
+
+
 def test_wrapper_uses_plain_version_only_on_cpu(tiny_cfg, rng):
     """CPU tensors take the plain version without counting a launch; a
     tensor on any other non-CUDA device raises instead of falling back."""

@@ -122,9 +122,18 @@ __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-__device__ __forceinline__ void bar_init(uint64_t* bar) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(
-      smem_addr(bar)));
+// An mbarrier whose phase completes after `count` arrivals (and the
+// bytes its bulk copies expect).
+__device__ __forceinline__ void bar_init(uint64_t* bar, int count = 1) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_addr(bar)),
+               "r"(count));
+}
+
+__device__ __forceinline__ void bar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_addr(bar))
+               : "memory");
 }
 
 __device__ __forceinline__ void bar_init_fence() {

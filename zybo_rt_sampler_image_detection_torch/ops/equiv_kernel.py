@@ -2,8 +2,12 @@
 
 The plain formulation (:mod:`.freq_equiv`) materialises the steered
 spectra ``Br/Bi`` — (B, D, F) tensors — and streams them again for the
-Parseval sum and the tail/head inverse DFT.  The fused kernel
-(``csrc/equiv_power.cu``, K1) keeps them on chip: a block owns a (frames x
+Parseval sum and the tail/head inverse DFT.  K1 (``csrc/equiv_power.cu``)
+has two routes.  In FP32, from ``SPLIT_MIN_FRAMES`` padded frames up, it
+does the same in two hand-written kernels: the per-bin product streams the
+plane into ``P``, then the fold and finish read ``P`` once
+(:func:`split_plan`).  bf16 planes, and smaller FP32 batches, take the
+fused kernel, which keeps ``Br/Bi`` on chip: a block owns a (frames x
 directions) output tile, loops over every frequency bin, and folds both
 reductions in while the per-bin products are live.  The source notes in
 the ``.cu`` files say what bounds the kernels on the H100 and how the
@@ -79,6 +83,20 @@ FCB = 4                    # bins folded per tail/head pass
 # frames' worth of work a block's H tile costs, in the frame-tile choice:
 # a block's time goes as (frame tile + FRAME_COST_H)
 FRAME_COST_H = 8
+# the FP32 route in two passes (csrc/equiv_power.cu): k pairs a ring stage
+# holds, consumer warps a product block may take, tail/head samples a fold
+# warp owns, warps a fold block may take, bins a fold stage holds and the
+# stages in flight
+SPLIT_KC = 16
+SPLIT_WARPS = (2, 3, 4)
+SPLIT_STAGES = 2
+# the fewest padded frames that take the two passes: below 8 the fused
+# kernel is faster at the 192-channel shape (measured, PERF.md)
+SPLIT_MIN_FRAMES = 8
+FOLD_TQ = 8
+FOLD_MAX_WARPS = 16
+FOLD_FC = 8
+FOLD_STAGES = 4
 
 _MODES = ("high", "bf16", "f32")
 
@@ -223,6 +241,71 @@ def make_spectra(spec: torch.Tensor, FP: int, BP: int, KP: int,
     return S
 
 
+class SplitPlan(NamedTuple):
+    """A launch of K1's FP32 route in two passes (:func:`split_plan`)."""
+
+    fb: int                    # frames a product block (divides BP)
+    nc: int                    # consumer warps a product block
+    stages: int                # ring stages a product block
+    smem: int                  # shared memory of a product block, bytes
+    product_grid: tuple        # (frame groups, direction groups, bins)
+    oq: int                    # frames a fold block (divides BP)
+    nw: int                    # warps a fold block
+    fold_smem: int             # shared memory of a fold block, bytes
+    fold_grid: tuple           # (direction groups of 32, frame groups)
+    p_shape: tuple             # P, in the order the fold reads it
+
+
+def split_smem_bytes(fb: int, nc: int, stages: int) -> int:
+    """Shared memory of one product block (mirrors ``split_smem`` in
+    csrc/equiv_power.cu): 128 bytes of mbarriers, then ``stages`` ring
+    stages, each the ``fb`` frames' spectra for ``SPLIT_KC`` k pairs
+    (``[sr | si]``) and ``8 * nc`` direction-tile slices of ``SPLIT_KC``
+    rows of each half, padded by 8 floats."""
+    stage = fb * 2 * SPLIT_KC + nc * 8 * (16 * SPLIT_KC + 8)
+    return 128 + stages * stage * 4
+
+
+def fold_smem_bytes(oq: int, Tt: int, Tc: int, JM: int) -> int:
+    """Shared memory of one fold block (mirrors ``fold_layout`` in
+    csrc/equiv_power.cu): the mbarriers, ``FOLD_STAGES`` stages of
+    ``FOLD_FC`` bins (the block's Br/Bi rows and the bases), the head
+    corrections, each warp's row pointers of the list, and the warps' sums
+    (before them, the frames' sj rows)."""
+    nw = -(-Tt // FOLD_TQ)
+    stage = _round_up(FOLD_FC * (2 * oq * 32 + 2 * _round_up(Tt, 4)) * 4, 128)
+    v = 128 + FOLD_STAGES * stage
+    rp = v + _round_up(Tc * oq * 32 * 4, 128)
+    red = rp + _round_up(nw * (Tc + 1) * 4, 128)
+    return red + max(nw * oq * 32, oq * JM) * 4
+
+
+@functools.lru_cache(maxsize=64)
+def split_plan(F: int, BP: int, KP: int, DP: int, Tt: int, Tc: int,
+               JM: int) -> SplitPlan:
+    """The plan of K1's FP32 route for its shapes alone.  Product: the
+    largest frame group (of 16, 8, 4, 2, 1) dividing BP; the consumer warps
+    (64 directions each) that leave the fewest idle on the last direction
+    group; a ring of ``SPLIT_STAGES`` (measured: a deeper ring costs
+    blocks an SM, and is slower).  Fold: 4, 2 or 1 frames a block, one warp
+    for each ``FOLD_TQ`` tail/head samples.  Raises ``ValueError`` when Tt
+    needs more than ``FOLD_MAX_WARPS`` warps (:func:`takes_split`)."""
+    fb = next(b for b in FRAME_TILES if BP % b == 0)
+    units = -(-DP // 64)
+    nc = min(SPLIT_WARPS, key=lambda n: (-(-units // n) * n, -n))
+    stages = SPLIT_STAGES
+    oq = next(q for q in (4, 2, 1) if BP % q == 0)
+    nw = -(-Tt // FOLD_TQ)
+    if nw > FOLD_MAX_WARPS:
+        raise ValueError(f"equiv_power: no fold plan for Tt={Tt} (at most "
+                         f"{FOLD_TQ * FOLD_MAX_WARPS})")
+    n_db = -(-DP // 32)
+    return SplitPlan(fb, nc, stages, split_smem_bytes(fb, nc, stages),
+                     (BP // fb, -(-(DP // 8) // (8 * nc)), F), oq, nw,
+                     fold_smem_bytes(oq, Tt, Tc, JM), (n_db, BP // oq),
+                     (n_db, BP // oq, F, 2, oq, 32))
+
+
 # ---- plain versions ---------------------------------------------------------
 
 def dense_plane(H1: torch.Tensor) -> torch.Tensor:
@@ -322,6 +405,11 @@ def _lib(name: str):
             lib.zrt_equiv_power_blocks_per_sm.argtypes = [i] * 6
             lib.zrt_equiv_power_tensor_cores.restype = i
             lib.zrt_equiv_power_tensor_cores.argtypes = [i]
+            lib.zrt_equiv_power_split.restype = i
+            lib.zrt_equiv_power_split.argtypes = [
+                p, p, p, p, p, p, p, p, p, p,       # S H1 ib1 ib2 sj ptr idx val P out
+                i, i, i, i, i, i, i, i,             # F BP KP DP TtP n_tail Tc JM
+                ctypes.c_float, i, i, i, i, p]      # inv fb nc ns oq stream
         else:
             lib.zrt_equiv_power_fd.restype = i
             lib.zrt_equiv_power_fd.argtypes = [
@@ -337,13 +425,32 @@ def _lib(name: str):
     return lib
 
 
-def route(dtype: torch.dtype) -> str:
-    """Where the kernels' per-bin product runs for this plane type, as the
-    compiled library reports it (builds it on first use)."""
+SPLIT_ROUTE = ("CUDA cores (FP32 FMA), two passes: the per-bin product, "
+               "then the fold and finish")
+
+
+def takes_split(dtype: torch.dtype, Tt: int, BP: int) -> bool:
+    """Whether K1 takes the two passes: FP32 planes, from
+    ``SPLIT_MIN_FRAMES`` padded frames up, whose tail/head samples one fold
+    block's warps cover.  bf16 planes, and the other FP32 calls, take the
+    fused kernel."""
+    return (dtype == torch.float32 and BP >= SPLIT_MIN_FRAMES
+            and Tt <= FOLD_TQ * FOLD_MAX_WARPS)
+
+
+def route(dtype: torch.dtype, Tt: Optional[int] = None,
+          BP: Optional[int] = None) -> str:
+    """Where the product of this plane type runs, as the compiled library
+    reports it (builds it on first use): bf16 on the tensor cores, FP32 on
+    the CUDA cores; given K1's tail/head count ``Tt`` and padded frames
+    ``BP``, FP32 in K1's two passes where :func:`takes_split`."""
     tc = _lib("equiv_power").zrt_equiv_power_tensor_cores(
         int(dtype == torch.bfloat16))
-    return ("tensor cores (mma.sync m16n8k16 bf16, FP32 sums)" if tc
-            else "CUDA cores (FP32 FMA)")
+    if tc:
+        return "tensor cores (mma.sync m16n8k16 bf16, FP32 sums)"
+    if Tt is not None and BP is not None and takes_split(dtype, Tt, BP):
+        return SPLIT_ROUTE
+    return "CUDA cores (FP32 FMA)"
 
 
 def _check(cond: bool, msg: str, name: str = "equiv_power") -> None:
@@ -482,48 +589,85 @@ def _fd_plan(dev, bf16: int, bt: int, KP: int, fc: int, Tt: int, n_bt: int,
     return best[0][0], best[1], best[2]
 
 
-def equiv_power(S, H1, ib1, ib2, sj, wc, *, n_tail: int, Tc: int,
-                inv: float, block_b: int = 1,
-                stages: Optional[int] = None) -> torch.Tensor:
-    """Fused equiv power (K1), (BP, DP) float32.
-
-    On CPU tensors this is :func:`equiv_power_plain`.  On CUDA tensors it
-    launches the ``sm_90a`` kernel (frame tile ``block_b``, a ring of
-    ``stages`` bins, by default from the runtime's occupancy) or raises;
-    there is no fallback.  ``equiv_power.launches`` counts the kernel
-    launches; ``equiv_power.last_route`` says where the last launch's
-    product ran."""
-    if S.device.type == "cpu":
-        return equiv_power_plain(S, H1, ib1, ib2, sj, wc, n_tail=n_tail,
-                                 Tc=Tc, inv=inv)
-    Fb, BP, KP, DP, JM = _check_inputs("equiv_power", S, H1, ib1, ib2, sj,
-                                       wc, n_tail, Tc, block_b)
+def _fused(lib, S, H1, ib1, ib2, sj, wc, out, *, n_tail, Tc, inv, block_b,
+           stages, dims) -> int:
+    """One launch of the fused kernel (the bf16 route) into ``out``."""
+    Fb, BP, KP, DP, JM = dims
     bf16 = int(S.dtype == torch.bfloat16)
     Tt = n_tail + Tc
-    dev = S.device
     if stages is None:
-        stages = _k1_plan(dev, bf16, block_b, Tt, KP, JM,
+        stages = _k1_plan(S.device, bf16, block_b, Tt, KP, JM,
                           BP // block_b * (DP // tile_d(S.dtype)))[1]
     _check(2 <= stages <= MAX_STAGES
            and smem_bytes(block_b, Tt, KP, JM, S.element_size(), stages)
            <= SMEM_MAX,
            f"block_b={block_b} with {stages} stages needs more than "
            f"{SMEM_MAX} B shared memory")
+    stream = torch.cuda.current_stream(S.device).cuda_stream
+    return lib.zrt_equiv_power(
+        S.data_ptr(), H1.data_ptr(), ib1.data_ptr(), ib2.data_ptr(),
+        sj.data_ptr() if Tc else None, wc.ptr.data_ptr() if Tc else None,
+        wc.idx.data_ptr() if Tc else None, wc.val.data_ptr() if Tc else None,
+        out.data_ptr(), Fb, BP, KP, DP, ib1.shape[1], n_tail, Tc, JM, stages,
+        float(inv), bf16, block_b, stream)
+
+
+def _split(lib, S, H1, ib1, ib2, sj, wc, out, *, n_tail, Tc, inv, stages,
+           dims) -> int:
+    """The FP32 route's two launches into ``out``, through ``P``
+    (:attr:`SplitPlan.p_shape`: direction blocks of 32, frame groups of the
+    fold, bins, Br/Bi, frames, directions), allocated here and read by the
+    second launch on the same stream."""
+    Fb, BP, KP, DP, JM = dims
+    plan = split_plan(Fb, BP, KP, DP, n_tail + Tc, Tc, JM)
+    ns = plan.stages if stages is None else stages
+    _check(2 <= ns <= MAX_STAGES
+           and split_smem_bytes(plan.fb, plan.nc, ns) <= SMEM_MAX,
+           f"{ns} ring stages of the product pass need more than "
+           f"{SMEM_MAX} B shared memory")
+    P = torch.empty(plan.p_shape, dtype=torch.float32, device=S.device)
+    stream = torch.cuda.current_stream(S.device).cuda_stream
+    return lib.zrt_equiv_power_split(
+        S.data_ptr(), H1.data_ptr(), ib1.data_ptr(), ib2.data_ptr(),
+        sj.data_ptr() if Tc else None, wc.ptr.data_ptr() if Tc else None,
+        wc.idx.data_ptr() if Tc else None, wc.val.data_ptr() if Tc else None,
+        P.data_ptr(), out.data_ptr(), Fb, BP, KP, DP, ib1.shape[1], n_tail,
+        Tc, JM, float(inv), plan.fb, plan.nc, ns, plan.oq, stream)
+
+
+def equiv_power(S, H1, ib1, ib2, sj, wc, *, n_tail: int, Tc: int,
+                inv: float, block_b: int = 1,
+                stages: Optional[int] = None) -> torch.Tensor:
+    """Fused equiv power (K1), (BP, DP) float32.
+
+    On CPU tensors this is :func:`equiv_power_plain`.  On CUDA tensors it
+    launches the ``sm_90a`` kernels or raises; there is no fallback.  FP32
+    planes take two kernels (:func:`takes_split`): the per-bin product into
+    ``P`` (Br and Bi of every bin, frame and direction), then the fold and
+    finish (:func:`split_plan`).  bf16 planes, and FP32 below
+    ``SPLIT_MIN_FRAMES`` padded frames, take the fused kernel (frame tile
+    ``block_b``).  ``stages`` fixes the ring depth of the product pass or
+    the fused kernel, by default planned.
+    ``equiv_power.launches`` counts the calls; ``equiv_power.last_route``
+    says where the last one computed (:func:`route`)."""
+    if S.device.type == "cpu":
+        return equiv_power_plain(S, H1, ib1, ib2, sj, wc, n_tail=n_tail,
+                                 Tc=Tc, inv=inv)
+    dims = _check_inputs("equiv_power", S, H1, ib1, ib2, sj, wc, n_tail, Tc,
+                         block_b)
     lib = _lib("equiv_power")
-    out = torch.empty((BP, DP), dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.zrt_equiv_power(
-            S.data_ptr(), H1.data_ptr(), ib1.data_ptr(), ib2.data_ptr(),
-            sj.data_ptr() if Tc else None,
-            wc.ptr.data_ptr() if Tc else None,
-            wc.idx.data_ptr() if Tc else None,
-            wc.val.data_ptr() if Tc else None, out.data_ptr(),
-            Fb, BP, KP, DP, ib1.shape[1], n_tail, Tc, JM, stages,
-            float(inv), bf16, block_b, stream)
+    out = torch.empty((dims[1], dims[3]), dtype=torch.float32,
+                      device=S.device)
+    kw = dict(n_tail=n_tail, Tc=Tc, inv=inv, stages=stages, dims=dims)
+    with torch.cuda.device(S.device):
+        if takes_split(S.dtype, n_tail + Tc, dims[1]):
+            err = _split(lib, S, H1, ib1, ib2, sj, wc, out, **kw)
+        else:
+            err = _fused(lib, S, H1, ib1, ib2, sj, wc, out, block_b=block_b,
+                         **kw)
     _raise_on(lib, err, "equiv_power")
     equiv_power.launches += 1
-    equiv_power.last_route = route(S.dtype)
+    equiv_power.last_route = route(S.dtype, n_tail + Tc, dims[1])
     return out
 
 
@@ -712,13 +856,15 @@ class FusedEquivBeamformer:
 
     def frame_tile(self, B: int) -> int:
         """The frame tile of a call of ``B`` frames.  df: the smallest
-        planned tile covering ``B``; past the largest tile, on the card,
-        the tile of 8 or more whose waves of blocks x (tile +
-        ``FRAME_COST_H``) are least, from the runtime's occupancy.  fd: on
-        the card the tile (up to the covering one) of the least planned
-        cost (waves x tiles a block x (tile + ``FRAME_COST_H``)).  On the
-        CPU, where the plain version runs, the covering tile or the largest
-        one."""
+        planned tile covering ``B``; past the largest tile, the largest one
+        where K1 takes its two passes (:func:`takes_split`; their product
+        runs frame groups of the largest tile dividing the padded batch),
+        else, on the card, the tile of 8 or more whose waves of blocks x
+        (tile + ``FRAME_COST_H``) are least, from the runtime's occupancy.
+        fd: on the card the tile (up to the covering one) of the least
+        planned cost (waves x tiles a block x (tile + ``FRAME_COST_H``)).
+        On the CPU, where the plain version runs, the covering tile or the
+        largest one."""
         tiles = self.frame_tiles
         cover = min((bt for bt in tiles if bt >= B), default=None)
         if not self.runs_fd and cover is not None:
@@ -726,6 +872,9 @@ class FusedEquivBeamformer:
         cands = [bt for bt in tiles if bt <= (cover or tiles[0])]
         if not self.runs_fd:
             cands = [bt for bt in tiles if bt >= 8] or [tiles[0]]
+            if takes_split(self.plane_dtype, self.Tt,
+                           _round_up(B, tiles[0])):
+                cands = [tiles[0]]
         if self.device.type != "cuda" or len(cands) == 1:
             return cands[0]
         bf16 = int(self.plane_dtype == torch.bfloat16)

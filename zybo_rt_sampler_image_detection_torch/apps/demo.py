@@ -110,13 +110,7 @@ def _make_pipeline(args, ring_frames: int = 64, audio_sink: str = "null",
             f"algorithms (pad/lerp/convolve/hybrid/truncated); "
             f"--algorithm {algorithm} computes power its own way and "
             f"the flags would be ignored")
-    if algorithm == "fft":
-        from ..ops import freq
-
-        tables = freq.make_freq_tables(cfg, device=args.device)
-        power_fn = lambda f: freq.fft_steered_power(f, tables)  # noqa: E731
-        algorithm = "lerp"          # miso still needs time-domain tables
-    elif algorithm == "mvdr":
+    if algorithm == "mvdr":
         # the streaming-inverse (RLS) MVDR: batched calls (the full-rate
         # stage) take the subspace-recursive scan (exact per-frame Capon
         # maps + one Woodbury state update per chunk), single frames (the

@@ -46,7 +46,7 @@ import torch.nn.functional as F_
 
 from ..config import Config
 from ..ingest.receiver import Receiver
-from ..ops import beamform
+from ..ops import beamform, freq
 from ..utils import audio as audio_mod
 from ..utils.metrics import PipelineMetrics, history
 from ..utils.profiling import annotate
@@ -120,6 +120,8 @@ def _select_power_backend(tables):
 
     Returns ``(kind, obj)``:
 
+    * ``("fft", FreqTables)`` — the FFT-domain Bartlett program
+      (:func:`freq.fft_steered_power`) of the ``fft`` route's tables;
     * ``("equiv_kernel", FusedEquivBeamformer)`` — the fused equiv CUDA
       kernel, at the ``high`` and ``bf16`` rungs on a CUDA device;
     * ``("freq_equiv", EquivFreqTables)`` — the exact plain-torch
@@ -132,6 +134,8 @@ def _select_power_backend(tables):
       ground-truth contract, and CPU tensors.  The name is the JAX
       package's.
     """
+    if isinstance(tables, freq.FreqTables):
+        return "fft", tables
     if tables.precision != "highest" and tables.device.type == "cuda":
         et = _equiv_tables_if_favored(tables)
         if et is not None:
@@ -162,6 +166,8 @@ def default_power_fn(tables):
         from ..ops import freq_equiv
 
         return lambda f: freq_equiv.equiv_steered_power(f, obj)
+    if kind == "fft":
+        return lambda f: freq.fft_steered_power(f, obj)
     return lambda f: beamform.steered_power(f, tables)
 
 
@@ -220,8 +226,6 @@ def make_mvdr_stream(cfg: Config, kind: str = "maps", alpha: float = 0.9,
     ``device="cpu"``.  Ref: ``api.c:576-581`` (live steer),
     ``api.c:491-543`` (miso_loop).
     """
-    from ..ops import freq
-
     if kind not in ("maps", "beams", "maps_beams"):
         raise ValueError(f"unknown mvdr stream kind {kind!r}")
     ft = freq.make_freq_tables(cfg, band_low, device=device)
@@ -326,6 +330,8 @@ def _sharded_power_program(mesh, tables):
     from ..parallel import mesh as mesh_mod
 
     kind, obj = _select_power_backend(tables)
+    if kind == "fft":
+        raise ValueError("mesh is exclusive with the fft route")
     if kind == "equiv_kernel":
         return mesh_mod.sharded_equiv_kernel_power(mesh, tables)
     if kind == "freq_equiv":
@@ -1077,6 +1083,13 @@ class Pipeline:
     """Owns the receiver + stages; the ``mimo()``/``miso()`` orchestration
     layer (``main.pyx:669-736,824-864``) as one object.
 
+    ``algorithm``: a time-domain algorithm of :func:`beamform.make_tables`
+    (``"lerp"``, ``"pad"``, ...), or ``"fft"``, the web app's FFT-domain
+    Bartlett backend: the heatmap stages then run
+    :func:`freq.fft_steered_power` on ``freq.make_freq_tables(cfg)``
+    (``power_tables``), and the time-domain tables of the listening
+    stages (``tables``, of ``listen_algorithm``) are built at their
+    first use.
     ``device`` is explicit (``"cuda"`` by default); asking for CUDA with no
     GPU present raises.  ``power_backend``: ``"auto"`` (the policy of
     :func:`_select_power_backend`), ``"freq_equiv"`` (the exact plain-torch
@@ -1093,7 +1106,8 @@ class Pipeline:
                  replay_mode: bool = False, backend: str = "auto",
                  power_backend: str = "auto", device="cuda",
                  power_fn=None, ring_frames: int = 64,
-                 audio_sink: str = "null", audio_path: Optional[str] = None):
+                 audio_sink: str = "null", audio_path: Optional[str] = None,
+                 listen_algorithm: str = "lerp"):
         self.cfg = cfg or Config()
         self.device = beamform.resolve_device(device)
         beamform.set_fp32_matmul()
@@ -1108,8 +1122,20 @@ class Pipeline:
                 f"power_fn: the backend flag selects how the time-domain "
                 f"steered power is computed, which a custom power_fn "
                 f"replaces entirely; pass one or the other")
-        self.tables = beamform.make_tables(self.cfg, algorithm,
-                                           device=self.device)
+        if algorithm == "fft":
+            if power_backend != "auto":
+                raise ValueError(
+                    f"power_backend={power_backend!r} reformulates the "
+                    f"time-domain algorithms; the fft route computes "
+                    f"power its own way")
+            self.power_tables = freq.make_freq_tables(self.cfg,
+                                                      device=self.device)
+            self._tables = None
+            self._listen_algorithm = listen_algorithm
+        else:
+            self._tables = beamform.make_tables(self.cfg, algorithm,
+                                                device=self.device)
+            self.power_tables = self._tables
         if power_backend == "freq_equiv":
             from ..ops import freq_equiv
 
@@ -1133,13 +1159,23 @@ class Pipeline:
         # stop() closes)
         self._miso = None
 
+    @property
+    def tables(self):
+        """The time-domain tables: the listening stages', and the heatmap
+        stages' but on the fft route, where they are built at the first
+        use."""
+        if self._tables is None:
+            self._tables = beamform.make_tables(
+                self.cfg, self._listen_algorithm, device=self.device)
+        return self._tables
+
     # -- bring-up -------------------------------------------------------------
 
     def connect(self, timeout: float = 30.0) -> int:
         return self.receiver.connect(timeout=timeout)
 
     def start_heatmap(self, warmup: bool = True):
-        s = HeatmapProducer(self.receiver, self.tables, self.q_power,
+        s = HeatmapProducer(self.receiver, self.power_tables, self.q_power,
                             self.metrics, power_fn=self._power_fn)
         if warmup:
             # build kernels and first-call state before the thread starts so
@@ -1168,7 +1204,7 @@ class Pipeline:
         if mesh is not None and self._power_fn is not None:
             raise ValueError("mesh is exclusive with a configured "
                              "power_fn/power_backend")
-        return BatchedHeatmapProducer(self.receiver, self.tables,
+        return BatchedHeatmapProducer(self.receiver, self.power_tables,
                                       self.q_power, self.metrics,
                                       batch=batch, power_fn=self._power_fn,
                                       sink=sink, channels=channels,
@@ -1263,13 +1299,15 @@ class Pipeline:
         ``beam='time'``: the heatmap program and the delay-and-sum beam.
         The heatmap half is the pipeline's ``power_fn`` when it has one
         (enabling audio must not switch the imaging semantics), else the
-        policy's program (:func:`_batched_power_program`).  ``beam='mvdr'``:
+        policy's program (:func:`_batched_power_program`) on
+        ``power_tables``.  ``beam='mvdr'``:
         the MVDR stream's ``"maps_beams"`` kind — ONE streaming-inverse
         update per batch shared by the Capon maps and the beam weights."""
         tables, n_full = self.tables, self.cfg.n_microphones
         if beam == "time":
             power_fn = (self._power_fn if self._power_fn is not None
-                        else _batched_power_program(tables, n_full))
+                        else _batched_power_program(self.power_tables,
+                                                    n_full))
 
             def process_fn(frames, d):
                 frames = _pad_full(frames, n_full)

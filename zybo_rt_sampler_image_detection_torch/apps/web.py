@@ -195,13 +195,11 @@ class VideoCamera:
         with self._lock:
             self._stop_locked()
             algo = _BACKENDS.get(backend, "pad")
-            time_algo = "pad" if algo in ("fft", "mvdr") else algo
+            # the fft route's listening and the mvdr backend's time-domain
+            # tables: pad
+            algorithm = "pad" if algo == "mvdr" else algo
             power_fn = None
-            if algo == "fft":
-                from ..ops import freq
-                ft = freq.make_freq_tables(self.cfg, device=self.device)
-                power_fn = lambda f: freq.fft_steered_power(f, ft)  # noqa: E731
-            elif algo == "mvdr":
+            if algo == "mvdr":
                 # streaming-inverse (RLS) Capon map per frame; the shared
                 # state machine owns the alpha-aware refresh cadence
                 from .pipeline import make_mvdr_stream
@@ -213,9 +211,10 @@ class VideoCamera:
                 fused = False
             # through the constructor, so that Pipeline's power_fn /
             # power_backend conflict validation applies
-            p = Pipeline(self.cfg, algorithm=time_algo,
+            p = Pipeline(self.cfg, algorithm=algorithm,
                          replay_mode=self.replay, audio_sink="null",
-                         power_fn=power_fn, device=self.device)
+                         power_fn=power_fn, device=self.device,
+                         listen_algorithm="pad")
             p.connect()
             if fused:
                 self._start_fused_locked(p)

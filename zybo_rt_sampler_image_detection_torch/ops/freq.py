@@ -27,21 +27,25 @@ Steering: the Bartlett sum is ``sum_m S_m P_m`` with ``P = phase``, so the
 Capon steering vector is ``a = conj(phase)``.
 
 Precision: every matmul runs at true FP32 (TF32 off,
-:func:`.beamform.set_fp32_matmul`) or in complex128.  The
-``grid_precision`` argument of the grid evaluations keeps the JAX
-signature; its three rungs ("highest", "high", "default") all run at
-FP32, which lies inside each rung's error class.
+:func:`.beamform.set_fp32_matmul`) or in complex128, except the
+Bartlett contraction of tables made at the ``default`` rung
+(:attr:`FreqTables.precision`, from ``Config.matmul_precision``), which
+takes bf16 operands.  The ``grid_precision`` argument of the grid
+evaluations keeps the JAX signature; its three rungs ("highest", "high",
+"default") all run at FP32, which lies inside each rung's error class.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Optional
 
 import numpy as np
 import torch
 
 from ..config import Config
+from ..utils.profiling import annotate
 from . import geometry
 from .beamform import resolve_device, set_fp32_matmul
 
@@ -64,6 +68,10 @@ class FreqTables:
     # out for a mesh (``parallel.mesh.shard_freq_tables``), whose padded
     # rows repeat the last bin; None: the bins ``[lo, hi)``
     bins: Optional[torch.Tensor] = None
+    # the Bartlett contraction's rung (``Config.matmul_precision``):
+    # "highest" and "high" contract in complex64 at true FP32, "default"
+    # with bf16 operands (:func:`fft_steered_power`)
+    precision: str = "highest"
 
     @property
     def device(self) -> torch.device:
@@ -72,6 +80,16 @@ class FreqTables:
     @property
     def n_mics(self) -> int:
         return self.phase.shape[1]
+
+    @functools.cached_property
+    def phase_bf16(self) -> torch.Tensor:
+        """(F, 2M, 2D) bf16 real form of ``phase``, ``[[Pr, Pi], [-Pi,
+        Pr]]``: ``[Sr | Si] @ phase_bf16`` is ``[Yr | Yi]``.  Made at the
+        first ``default``-rung contraction."""
+        pr, pi = self.phase.real, self.phase.imag
+        return torch.cat([torch.cat([pr, pi], dim=2),
+                          torch.cat([-pi, pr], dim=2)], dim=1).to(
+                              torch.bfloat16)
 
     @classmethod
     def from_numpy(cls, phase_re, phase_im, adaptive, *, lo, hi, res_x,
@@ -95,8 +113,8 @@ def make_freq_tables(cfg: Config, freq_low: Optional[float] = None,
                      device="cuda") -> FreqTables:
     """Band limits default to the config's ``freq_band_low/high``
     (``realtime_scripts/config.py:47-48`` threshold_freq_lower/upper);
-    the mic model follows ``cfg.fft_mic_model``.  On the card unless
-    ``device="cpu"``."""
+    the mic model follows ``cfg.fft_mic_model``, the contraction's rung
+    ``cfg.matmul_precision``.  On the card unless ``device="cpu"``."""
     dev = resolve_device(device)
     if freq_low is None:
         freq_low = cfg.freq_band_low
@@ -115,7 +133,8 @@ def make_freq_tables(cfg: Config, freq_low: Optional[float] = None,
     return FreqTables(
         phase=torch.from_numpy(phase.reshape(F, M, X * Y)).to(dev),
         adaptive=torch.from_numpy(np.asarray(active, np.int64)).to(dev),
-        lo=lo, hi=hi, res_x=X, res_y=Y, n_samples=cfg.n_samples)
+        lo=lo, hi=hi, res_x=X, res_y=Y, n_samples=cfg.n_samples,
+        precision=cfg.matmul_precision)
 
 
 def _signals(signals, t: FreqTables) -> torch.Tensor:
@@ -145,16 +164,31 @@ def _check_grid(grid_precision: str) -> None:
         raise ValueError(f"unknown grid_precision {grid_precision!r}")
 
 
-def _steered_spectra(signals, t: FreqTables):
-    """(steered spectra (F, B, D), squeeze): ``sum_m S[f, m] P[f, m, d]``
-    as one batched complex matmul."""
-    set_fp32_matmul()
+def _band_spectra(signals, t: FreqTables):
+    """(band spectra (F, B, M) contiguous, squeeze) of (M, N) frames or
+    (B, M, N) batches."""
     signals = _signals(signals, t)
     squeeze = signals.ndim == 2
     if squeeze:
         signals = signals[None]
-    S = _frame_fft(signals, t).transpose(0, 1).contiguous()     # (F, B, M)
+    return _frame_fft(signals, t).transpose(0, 1).contiguous(), squeeze
+
+
+def _steered_spectra(signals, t: FreqTables):
+    """(steered spectra (F, B, D), squeeze): ``sum_m S[f, m] P[f, m, d]``
+    as one batched complex matmul."""
+    set_fp32_matmul()
+    S, squeeze = _band_spectra(signals, t)                      # (F, B, M)
     return torch.matmul(S, _phase(t, S.dtype)), squeeze
+
+
+def _per_bin_power_bf16(S: torch.Tensor, t: FreqTables) -> torch.Tensor:
+    """``|sum_m S P|^2`` (F, B, D) float32 with bf16 operands: one real
+    batched product of ``[Sr | Si]`` by :attr:`FreqTables.phase_bf16`."""
+    Sb = torch.cat([S.real, S.imag], dim=-1).to(torch.bfloat16)
+    Y = torch.matmul(Sb, t.phase_bf16).float()                  # (F, B, 2D)
+    D = Y.shape[-1] // 2
+    return Y[..., :D].square() + Y[..., D:].square()
 
 
 def fft_steered_power(signals, t: FreqTables,
@@ -167,14 +201,33 @@ def fft_steered_power(signals, t: FreqTables,
 
     ``bin_weights`` (F,) scales each bin's contribution to the sum (the
     JAX package's sharded path masks the bins that pad F with it).
+
+    Float32 frames contract in complex64 at true FP32, or with bf16
+    operands where ``t.precision`` is ``"default"``; float64 frames in
+    complex128.  Spans: ``power.fft_spectra`` (the channel gather, the
+    rfft and the band) and ``power.fft_contract`` (the contraction,
+    ``|.|^2`` and the sum over bins); ``fft_steered_power.launches``
+    counts the calls.
     """
-    Y, squeeze = _steered_spectra(signals, t)                   # (F, B, D)
-    per_bin = Y.real.square() + Y.imag.square()
-    if bin_weights is not None:
-        per_bin = per_bin * torch.as_tensor(
-            bin_weights, device=t.device, dtype=per_bin.dtype)[:, None, None]
-    power = per_bin.sum(dim=0).reshape(-1, t.res_x, t.res_y)
+    fft_steered_power.launches += 1
+    set_fp32_matmul()
+    with annotate("power.fft_spectra"):
+        S, squeeze = _band_spectra(signals, t)                  # (F, B, M)
+    with annotate("power.fft_contract"):
+        if t.precision == "default" and S.dtype == torch.complex64:
+            per_bin = _per_bin_power_bf16(S, t)
+        else:
+            Y = torch.matmul(S, _phase(t, S.dtype))             # (F, B, D)
+            per_bin = Y.real.square() + Y.imag.square()
+        if bin_weights is not None:
+            per_bin = per_bin * torch.as_tensor(
+                bin_weights, device=t.device,
+                dtype=per_bin.dtype)[:, None, None]
+        power = per_bin.sum(dim=0).reshape(-1, t.res_x, t.res_y)
     return power[0] if squeeze else power
+
+
+fft_steered_power.launches = 0
 
 
 def normalize_heatmap(power, threshold: float = 0.2) -> torch.Tensor:

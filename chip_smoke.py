@@ -17,7 +17,10 @@ Phases (any failure raises, so the exit code is non-zero):
    ``torch.bmm`` pair (continuity with the first kernel) and of the
    one-plane ``torch.bmm`` of the 2B spectra rows; the restated bound and
    the kernel's share of it, each mode's route (FP32 FMA or tensor cores)
-   and the table bytes the class holds.
+   and the table bytes the class holds.  Then K1 f32 at B=16 on the plane
+   over the 192 connected channels of a channel-sliced stage beside the
+   full 256-mic plane, timed in turns, with the plane's channel count
+   and the gap between the two.
 3. The direction-innermost equiv kernel (K5, ``sweep="fd"``) against its
    plain version and against K1 at ``Config()`` lerp and hybrid,
    f32/high/bf16, B=1 and B=16, on the auto fd plan (more than one
@@ -384,7 +387,54 @@ def phase_kernel_vs_plain(card: str) -> dict:
                         ("f32", "high", "bf16"))
     _k1_vs_plain(card, "onboard64", Config.northstar(), ("lerp",),
                  ("f32", "high"))
+    phase_k1_trim(card)
     return main
+
+
+def phase_k1_trim(card: str) -> None:
+    """K1 f32 at B=16 at Config() lerp on the plane over the connected
+    channels (``FusedEquivBeamformer(channels=192)``, the sliced batch)
+    beside the full plane (the batch padded to 256 rows): each kernel's
+    CUDA-event time in turns (full, trimmed, trimmed, full), the planes'
+    channel counts, KP and the bound of each, and the maps' gap."""
+    from zybo_rt_sampler_image_detection_torch.apps import pipeline
+    from zybo_rt_sampler_image_detection_torch.config import Config
+    from zybo_rt_sampler_image_detection_torch.ops import (
+        beamform, equiv_kernel as ek)
+
+    cfg, B, C = Config(), FULLRATE_BATCH, FULLRATE_CHANNELS
+    et = ek.make_equiv_tables(beamform.make_tables(cfg, "lerp",
+                                                   device="cuda"))
+    gen = torch.Generator("cuda").manual_seed(1234)
+    x = torch.randn(B, C, cfg.n_samples, device="cuda", generator=gen) * 0.05
+    runs = {}
+    for label, channels, frames in (
+            ("full", 0, pipeline._pad_full(x, cfg.n_microphones)),
+            ("trimmed", C, x)):
+        fk = ek.FusedEquivBeamformer(et, mode="f32", channels=channels)
+        S, sj, bt = fk.kernel_inputs(frames)
+        args = (S, fk.H1, fk.ib1, fk.ib2, sj, fk.wc)
+        kw = dict(n_tail=fk.n_tail, Tc=fk.Tc, inv=fk.inv, block_b=bt)
+        runs[label] = (fk, lambda a=args, k=kw: ek.equiv_power(*a, **k),
+                       fk(frames))
+    (full, kfull, mfull), (trim, ktrim, mtrim) = runs["full"], runs["trimmed"]
+    f1, t1 = time_ms(kfull, 10), time_ms(ktrim, 10)
+    t2, f2 = time_ms(ktrim, 10), time_ms(kfull, 10)
+    gap = ((mtrim - mfull).abs().max() / mfull.abs().max()).item()
+    for label, fk, ms in (("full", full, (f1 + f2) / 2),
+                          ("trimmed", trim, (t1 + t2) / 2)):
+        bd = equiv_bound(fk, B)
+        print(f"[K1-trim] Config() lerp f32 B={B} {label}: plane over "
+              f"{fk.M} mics (channels {fk.channels or cfg.n_microphones}), "
+              f"KP {fk.KP}, H1 {nbytes(fk.H1) / 1e9:.4f} GB | kernel "
+              f"{ms:.4f} ms | bound {bd['bound_ms']:.4f} ms "
+              f"({bd['bound_by']}, {bd['bound_ms'] / ms:.1%} of it) | route "
+              f"{ek.route(fk.plane_dtype, fk.Tt, B)} [{card}]")
+    print(f"[K1-trim] trimmed / full {(t1 + t2) / (f1 + f2):.3f}; maps' gap "
+          f"max|trimmed - full| / max|full| {gap:.3e} (limit 1e-6) [{card}]")
+    assert trim.channels == C and trim.M == C and gap <= 1e-6, gap
+    del runs, full, trim, et
+    torch.cuda.empty_cache()
 
 
 def _k1_vs_plain(card: str, label: str, cfg, algos, modes) -> dict:

@@ -285,6 +285,66 @@ def test_fd_f32_matches_split_route(cuda):
                                    rtol=TOL["f32"], atol=1e-14)
 
 
+# --- K1 on the connected channels of a channel-sliced stage -----------------
+
+# max |trimmed - untrimmed| / max |untrimmed|: the two sum the same nonzero
+# terms (the untrimmed plane adds exact zeros), in another order
+TRIM_GAP = 1e-6
+
+
+@pytest.mark.parametrize("mode,B", [("high", 16), ("high", 1),
+                                    ("bf16", 16), ("bf16", 1)])
+def test_trimmed_k1_matches_untrimmed(cuda, mode, B):
+    """At cfgjson's shape (256 mic slots, 192 connected), K1 over the
+    connected channels on the sliced batch against the untrimmed K1 on the
+    batch padded back to the frame: 16 frames take the two passes in FP32,
+    one frame the fused kernel; bf16 the tensor cores at both."""
+    cfg = _bench_config("cfgjson")
+    channels = cfg.active_arrays * cfg.rows * cfg.columns
+    et = tk.make_equiv_tables(tb.make_tables(cfg, "lerp", device=cuda))
+    full = tk.FusedEquivBeamformer(et, mode=mode)
+    trim = tk.FusedEquivBeamformer(et, mode=mode, channels=channels)
+    assert (full.KP, trim.KP, trim.channels) == (512, 384, channels)
+    assert trim.inv == full.inv
+    x = torch.from_numpy(_frames(cfg, B, seed=B)[:, :channels]).to(cuda)
+    ref = full(pipeline._pad_full(x, cfg.n_microphones))
+    route = tk.equiv_power.last_route
+    got = trim(x)
+    assert tk.equiv_power.last_route == route == (
+        tk.SPLIT_ROUTE if mode == "high" and B >= tk.SPLIT_MIN_FRAMES
+        else tk.route(trim.plane_dtype))
+    gap = float((got - ref).abs().max() / ref.abs().max())
+    assert gap <= TRIM_GAP, gap
+
+
+def test_trim_counter_follows_the_channel_slice(cuda):
+    """The full-rate stage of each benchmark configuration, sliced to its
+    connected channels: every cfgjson batch runs the trimmed plane (192
+    mics), no onboard64 batch (64 channels of a 64-slot frame) and no
+    batch of the fft route, sliced or not."""
+    cases = (("cfgjson", "lerp", None), ("onboard64", "lerp", None),
+             ("webfft", "fft", None), ("webfft", "fft", 192))
+    for name, algorithm, channels in cases:
+        cfg = _bench_config(name)
+        channels = channels or cfg.active_arrays * cfg.rows * cfg.columns
+        p = pipeline.Pipeline(cfg, algorithm, replay_mode=True,
+                              backend="python", device="cuda")
+        stage = p.make_heatmap_batched(batch=16, channels=channels)
+        calls = tk.FusedEquivBeamformer.trimmed_calls
+        stage.warmup()
+        for i in range(3):
+            x = _frames(cfg, 16, seed=i)[:, :channels]
+            _, done = stage._dispatch(np.ascontiguousarray(x))
+            done.synchronize()
+        n = tk.FusedEquivBeamformer.trimmed_calls - calls
+        if name == "cfgjson":
+            assert n == 4 and tk.FusedEquivBeamformer.trimmed_mics == 192
+            assert stage.power_fn.channels == 192
+        else:
+            assert n == 0, (name, channels)
+            assert not pipeline._takes_sliced(stage.power_fn)
+
+
 # --- fused time-domain power (csrc/time_power.cu) -------------------------
 
 # max cellwise relative error of the kernel against its plain version, in

@@ -16,6 +16,7 @@ from zybo_rt_sampler_image_detection_tpu.ops import beamform as jb
 from zybo_rt_sampler_image_detection_tpu.ops import equiv_kernel as jk
 from zybo_rt_sampler_image_detection_tpu.ops import freq_equiv as jf
 from zybo_rt_sampler_image_detection_torch import Config
+from zybo_rt_sampler_image_detection_torch.apps import pipeline
 from zybo_rt_sampler_image_detection_torch.ops import beamform as tb
 from zybo_rt_sampler_image_detection_torch.ops import equiv_kernel as tk
 from zybo_rt_sampler_image_detection_torch.ops import freq_equiv as tf
@@ -177,12 +178,15 @@ def test_hopper_plan_fits_shared_memory():
                                                     ib_im=huge))
 
 
-def _k1_shapes(cfg, algorithm):
+def _k1_shapes(cfg, algorithm, channels=0):
     """``(F, KP, DP, Tt, Tc, JM)`` of K1 on ``cfg``'s tables, from the
     time-domain tables alone (``equiv_dims``), as ``FusedEquivBeamformer``
-    pads them."""
+    pads them; with ``channels``, over the mics below that channel
+    slice."""
     t = tb.make_tables(cfg, algorithm, cache=False, device="cpu")
     D, _, M = t.W.shape
+    if channels:
+        M = int((t.adaptive < channels).sum())
     L, F = tf.equiv_dims(t)
     Tc = 0 if t.Wc is None else t.Wc.shape[2]
     JM = 0 if t.Wc is None else len(t.corr_js) * M
@@ -202,18 +206,22 @@ def _bench_config(name):
 
 
 @pytest.mark.parametrize("config", ["default", "northstar", "cfgjson",
-                                    "onboard64"])
+                                    "onboard64", "cfgjson.connected"])
 @pytest.mark.parametrize("algorithm", ["lerp", "hybrid"])
 def test_split_plan_fits_shared_memory(config, algorithm):
     """K1's FP32 route in two passes: every shape the repo's configurations
-    reach, at 1, 16 and 37 frames (padded to each frame tile the class can
-    pick), gets a product pass and a fold pass whose blocks fit 227 KB of
-    shared memory (two product blocks to an SM), fold warps that cover
-    every tail/head sample, and a P buffer that holds Br and Bi of every
-    bin, frame and direction."""
+    reach (``.connected``: the plane over the connected channels of a
+    channel-sliced stage, KP = 384 at cfgjson), at 1, 16 and 37 frames
+    (padded to each frame tile the class can pick), gets a product pass and
+    a fold pass whose blocks fit 227 KB of shared memory (two product
+    blocks to an SM), fold warps that cover every tail/head sample, and a P
+    buffer that holds Br and Bi of every bin, frame and direction."""
+    name, _, part = config.partition(".")
     cfg = {"default": Config, "northstar": Config.northstar}.get(
-        config, lambda: _bench_config(config))()
-    F, KP, DP, Tt, Tc, JM = _k1_shapes(cfg, algorithm)
+        name, lambda: _bench_config(name))()
+    channels = cfg.active_arrays * cfg.rows * cfg.columns if part else 0
+    F, KP, DP, Tt, Tc, JM = _k1_shapes(cfg, algorithm, channels)
+    assert KP // 2 % tk.SPLIT_KC == 0
     for B, tiles in ((1, (1,)), (16, (16,)), (37, (8, 16))):
         for bt in tiles:
             BP = tk._round_up(B, bt)
@@ -246,6 +254,9 @@ def test_split_plan_shapes_of_the_benchmark():
                                                             98, 48, 256)
     assert _k1_shapes(_bench_config("onboard64"), "lerp") == (139, 128, 4240,
                                                               38, 18, 64)
+    # cfgjson's stage slices its frames to the 192 connected channels
+    assert _k1_shapes(_bench_config("cfgjson"), "lerp", 192) == (
+        154, 384, 1824, 98, 48, 192)
     cfg = tk.split_plan(154, 16, 512, 1824, 98, 48, 256)
     assert (cfg.fb, cfg.nc, cfg.stages, cfg.oq, cfg.nw) == (16, 3, 2, 4, 13)
     assert cfg.product_grid == (1, 10, 154) and cfg.fold_grid == (57, 4)
@@ -273,3 +284,213 @@ def test_wrapper_uses_plain_version_only_on_cpu(tiny_cfg, rng):
             for a in args]
     with pytest.raises(ValueError, match="device"):
         tk.equiv_power(*meta, block_b=bt, **kw)
+
+
+# --- K1 on the connected channels only (FusedEquivBeamformer(channels=)) ----
+# A full-rate stage that slices its frames to the connected channels hands
+# the program (B, channels, N) batches, whose padded rows are exactly zero:
+# the plane, the head corrections and the gather over the mics below the
+# slice give the maps of the untrimmed tables on the same batches padded by
+# ``_pad_full``, with the normalisation of every mic.  Unsliced programs keep
+# the untrimmed tables, and a stage builds one plane.  The kernels on the
+# card: ``tests/test_torch_cuda.py -k trim``.
+
+# the trimmed and untrimmed products sum the same nonzero FP32 terms; the
+# CPU's bmm blocks a K of 384 and one of 512 differently
+REASSOC_RTOL = 1e-6
+
+
+def _config(name):
+    """``(cfg, channels)``: cfgjson's frame (4 slots, 3 boards connected)
+    on a 5x3 grid; a 2-slot tiny frame with every second mic (so the kept
+    mics are not the first rows of the frame) and one dead mic."""
+    if name == "cfgjson":
+        cfg = _bench_config("cfgjson").replace(max_res_x=5, max_res_y=3)
+    else:
+        cfg = Config.tiny().replace(n_microphones=32, array_slots=2,
+                                    skip_n_mics=2, unused_mics=(2,),
+                                    matmul_precision="high")
+    return cfg, cfg.active_arrays * cfg.rows * cfg.columns
+
+
+def _sliced(cfg, channels, B, seed=0):
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy((rng.standard_normal(
+        (B, channels, cfg.n_samples)) * 0.1).astype(np.float32))
+
+
+@pytest.mark.parametrize("mode", ["high", "bf16"])
+@pytest.mark.parametrize("config", ["cfgjson", "skip2"])
+def test_trimmed_plane_equals_padded(config, mode):
+    """The trimmed beamformer on sliced batches against the untrimmed one
+    on the same batches padded back to the frame: the same maps (FP32
+    reassociation), the same ``inv``, the kept mics' columns of the plane
+    and corrections, and K = 2M shrunk with M."""
+    cfg, channels = _config(config)
+    t = tb.make_tables(cfg, "lerp", cache=False, device="cpu")
+    full = tk.FusedEquivBeamformer(t, mode=mode)
+    trim = tk.FusedEquivBeamformer(t, mode=mode, channels=channels)
+    kept = t.adaptive < channels
+    n_kept = int(kept.sum())
+    assert 0 < n_kept < full.M and full.channels == 0
+    assert trim.channels == channels and trim.M == n_kept
+    assert trim.inv == full.inv
+    assert trim.KP == tk._round_up(2 * n_kept, tk.K_ALIGN)
+    assert trim.JM == len(trim.corr_js) * n_kept
+    if config == "cfgjson":
+        assert (full.M, full.KP, trim.KP) == (256, 512, 384)
+        assert trim.adaptive is None        # the first 192 rows, in order
+    else:
+        assert not torch.equal(t.adaptive[kept],
+                               torch.arange(n_kept))
+        assert torch.equal(trim.adaptive, t.adaptive[kept])
+    # the plane's columns: [Hr | -Hi] of the kept mics, each half padded
+    hf, ht = tk.dense_plane(full.H1), tk.dense_plane(trim.H1)
+    idx = torch.nonzero(kept).squeeze(1)
+    assert torch.equal(ht[:, :n_kept], hf[:, idx])
+    assert torch.equal(ht[:, trim.MP:trim.MP + n_kept],
+                       hf[:, full.MP + idx])
+    assert not ht[:, n_kept:trim.MP].any()
+    for B in (1, 16):
+        x = _sliced(cfg, channels, B, seed=B)
+        ref = full(pipeline._pad_full(x, cfg.n_microphones))
+        got = trim(x)
+        assert got.shape == ref.shape
+        np.testing.assert_allclose(_np(got), _np(ref),
+                                   rtol=REASSOC_RTOL, atol=0,
+                                   err_msg=f"B={B}")
+
+
+def test_trimmed_plane_takes_f16_transfers():
+    """An f16 transfer's sliced batch is upcast by the gather, as
+    ``_pad_full`` upcasts it for the untrimmed tables."""
+    cfg, channels = _config("skip2")
+    t = tb.make_tables(cfg, "lerp", cache=False, device="cpu")
+    x = _sliced(cfg, channels, 4).half()
+    ref = tk.FusedEquivBeamformer(t)(pipeline._pad_full(x,
+                                                        cfg.n_microphones))
+    got = tk.FusedEquivBeamformer(t, channels=channels)(x)
+    np.testing.assert_allclose(_np(got), _np(ref), rtol=REASSOC_RTOL,
+                               atol=0)
+
+
+def test_trim_needs_a_mic_below_the_slice():
+    cfg = Config.tiny().replace(n_microphones=32, array_slots=2,
+                                unused_mics=(0, 1))
+    t = tb.make_tables(cfg, "lerp", cache=False, device="cpu")
+    with pytest.raises(ValueError, match="no active mic"):
+        tk.FusedEquivBeamformer(t, channels=2)
+
+
+class _OnCard:
+    """CPU tables the policy takes for the card's: its equiv kernel then
+    runs the plain version."""
+
+    def __init__(self, t):
+        self._t = t
+        self.device = torch.device("cuda")
+
+    def __getattr__(self, name):
+        return getattr(self._t, name)
+
+
+@pytest.fixture
+def card_policy(monkeypatch):
+    """The policy as on the card, on CPU tables; the beamformers it
+    builds are recorded."""
+    built = []
+    policy_kernel = pipeline._equiv_kernel_if_favored
+
+    def recorded(*a, **kw):
+        built.append(policy_kernel(*a, **kw))
+        return built[-1]
+
+    monkeypatch.setattr(pipeline, "_equiv_kernel_if_favored", recorded)
+    monkeypatch.setattr(pipeline, "_equiv_tables_if_favored",
+                        lambda tables: tf.make_equiv_tables(tables._t))
+    return built
+
+
+@pytest.mark.parametrize("sliced", [0, "full", "connected"])
+def test_batched_program_trims_only_sliced_stages(card_policy, sliced):
+    """The full-rate program builds one beamformer: over the connected
+    channels where the stage slices its frames (the program is then the
+    beamformer, it takes the sliced batch and counts the call), else the
+    untrimmed tables behind ``_pad_full``, counting nothing."""
+    cfg, connected = _config("cfgjson")
+    n_full = cfg.n_microphones
+    channels = {0: 0, "full": n_full, "connected": connected}[sliced]
+    t = tb.make_tables(cfg, "lerp", cache=False, device="cpu")
+    prog = pipeline._batched_power_program(_OnCard(t), n_full, channels)
+    assert len(card_policy) == 1
+    k = card_policy[0]
+    rows = channels or n_full
+    x = _sliced(cfg, rows, 16)
+    calls = tk.FusedEquivBeamformer.trimmed_calls
+    out = prog(x)
+    if sliced == "connected":
+        assert prog is k and pipeline._takes_sliced(prog)
+        assert (k.channels, k.M, k.KP) == (connected, connected, 384)
+        assert tk.FusedEquivBeamformer.trimmed_calls == calls + 1
+        assert tk.FusedEquivBeamformer.trimmed_mics == connected
+    else:
+        assert prog is not k and not pipeline._takes_sliced(prog)
+        assert (k.channels, k.M, k.KP) == (0, n_full, 512)
+        assert tk.FusedEquivBeamformer.trimmed_calls == calls
+    ref = tk.FusedEquivBeamformer(t)(pipeline._pad_full(x, n_full))
+    np.testing.assert_allclose(_np(out), _np(ref), rtol=REASSOC_RTOL,
+                               atol=0)
+
+
+def test_trim_leaves_other_backends_padded(card_policy):
+    """The exact product (CPU tables) and the fft route take the padded
+    batch at a channel slice: no beamformer, no trim."""
+    from zybo_rt_sampler_image_detection_torch.ops import freq
+
+    cfg, channels = _config("skip2")
+    x = _sliced(cfg, channels, 2)
+    n_full = cfg.n_microphones
+    t = tb.make_tables(cfg, "lerp", cache=False, device="cpu")
+    ft = freq.make_freq_tables(cfg, device="cpu")
+    calls = tk.FusedEquivBeamformer.trimmed_calls
+    for tables, ref in ((t, tb.steered_power), (ft, freq.fft_steered_power)):
+        prog = pipeline._batched_power_program(tables, n_full, channels)
+        assert not pipeline._takes_sliced(prog)
+        np.testing.assert_allclose(
+            _np(prog(x)),
+            _np(ref(pipeline._pad_full(x, n_full), tables)),
+            rtol=1e-6, atol=0)
+    assert not card_policy
+    assert tk.FusedEquivBeamformer.trimmed_calls == calls
+
+
+def test_stages_hand_the_sliced_batch_to_the_trimmed_program(card_policy,
+                                                             monkeypatch):
+    """The full-rate heatmap stage and the combined listening stage, both
+    sliced to the connected channels: every batch runs the trimmed plane
+    unpadded (counted), the maps equal the untrimmed tables' on the padded
+    batch, and the combined stage's beam still takes the padded batch."""
+    cfg, channels = _config("skip2")
+    p = pipeline.Pipeline(cfg, "lerp", replay_mode=True, backend="python",
+                          device="cpu")
+    policy = pipeline._select_power_backend
+    monkeypatch.setattr(pipeline, "_select_power_backend",
+                        lambda tables, channels=0: policy(_OnCard(tables),
+                                                          channels))
+    n_full = cfg.n_microphones
+    x = _sliced(cfg, channels, 4)
+    ref = tk.FusedEquivBeamformer(p.tables)(pipeline._pad_full(x, n_full))
+    calls = tk.FusedEquivBeamformer.trimmed_calls
+    stage = p.make_heatmap_batched(batch=4, channels=channels)
+    assert stage.power_fn is card_policy[-1] and stage.power_fn.channels
+    np.testing.assert_allclose(_np(stage.launch(x)), _np(ref),
+                               rtol=REASSOC_RTOL, atol=0)
+    combined = p.make_mimo_miso_batched(batch=4, channels=channels)
+    assert len(card_policy) == 2 and card_policy[-1].channels == channels
+    maps, beams = combined.process_fn(x, 0)
+    np.testing.assert_allclose(_np(maps), _np(ref), rtol=REASSOC_RTOL,
+                               atol=0)
+    torch.testing.assert_close(
+        beams, tb.miso_beam(pipeline._pad_full(x, n_full), p.tables, 0),
+        rtol=0, atol=0)
+    assert tk.FusedEquivBeamformer.trimmed_calls == calls + 2

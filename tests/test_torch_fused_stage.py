@@ -182,6 +182,47 @@ def test_fused_ema_carry_advances(pair):
     assert not np.array_equal(c1, c2)
 
 
+@pytest.mark.parametrize("listen", [None, "time"])
+def test_fused_stage_trims_a_sliced_stage(pair, monkeypatch, listen):
+    """A stage sliced to its connected channels, under the card's pick of
+    K1 at the ``high`` rung (a stand-in for the policy on CPU tables),
+    runs the plane over those channels on the unpadded batch: its
+    composites within one count of the compositor on the untrimmed maps
+    of the padded batch (the two sum the same FP32 terms in another
+    order), the beam unchanged."""
+    from zybo_rt_sampler_image_detection_torch.apps import pipeline
+    from zybo_rt_sampler_image_detection_torch.ops import equiv_kernel
+
+    s, _, _, _, _, cams, boxes = pair
+    cfg = Config.tiny().replace(n_microphones=32, array_slots=2,
+                                matmul_precision="high")
+    tables = beamform.make_tables(cfg, "lerp", cache=False, device="cpu")
+    monkeypatch.setattr(
+        pipeline, "_select_power_backend",
+        lambda t, channels=0: ("equiv_kernel",
+                               equiv_kernel.FusedEquivBeamformer(
+                                   t, channels=channels)))
+    st = _stage(tables, s.detector, cfg, channels=16, listen=listen)
+    assert st._sliced and st._power.channels == 16
+    rng = np.random.default_rng(3)
+    mic = (rng.standard_normal((st.Km, 16, cfg.n_samples))
+           * 0.1).astype(np.float32)
+    calls = equiv_kernel.FusedEquivBeamformer.trimmed_calls
+    comps, _, _, _, _, beams = _run(st, mic, cams, boxes)
+    assert equiv_kernel.FusedEquivBeamformer.trimmed_calls == calls + 1
+    padded = torch.from_numpy(
+        np.concatenate([mic, np.zeros_like(mic)], axis=1))
+    powers = equiv_kernel.FusedEquivBeamformer(tables)(padded[-st.batch:])
+    yolos = np.broadcast_to(boxes, (st.batch,) + boxes.shape).copy()
+    ref, _, _ = st.comp(powers, cams, yolos, st.comp.init_prev(),
+                        count=st.batch)
+    diff = np.abs(comps.astype(np.int32) - ref.numpy().astype(np.int32))
+    assert diff.max() <= 1, diff.max()
+    if listen:
+        np.testing.assert_array_equal(
+            beams, beamform.miso_beam(padded, tables, 0).numpy())
+
+
 def test_fused_stage_refuses_bad_arguments(pair):
     s, _, cfg, tables, *_ = pair
     for kw, what in ((dict(transfer="f8"), "transfer"),

@@ -51,7 +51,7 @@ from ..ops import beamform
 from ..utils import imaging
 from ..utils.metrics import PipelineMetrics, history
 from .pipeline import (AudioLeg, Stage, _batched_power_program, _pad_full,
-                       _rect_conf)
+                       _rect_conf, _takes_sliced)
 
 log = logging.getLogger(__name__)
 
@@ -293,7 +293,9 @@ class FusedSensorStage(Stage):
         self._det_tables = _resize_tables((Hc, Wc), (S, S),
                                           imaging._HAS_CV2, self.device)
         self._det_scale = (Wc / S, Hc / S)
-        self._power = _batched_power_program(tables, self.n_full)
+        self._power = _batched_power_program(tables, self.n_full,
+                                             self.channels)
+        self._sliced = _takes_sliced(self._power)
         self._prev = None
         self._boxes = np.full((T, 5), -100.0, np.float32)
         self._direction = 0
@@ -341,10 +343,11 @@ class FusedSensorStage(Stage):
         packed uint8 output and the mvdr state after the batch."""
         K = self.batch
         mic, boxes, cams = self._split(packed)
-        mic_p = _pad_full(mic, self.n_full)
+        mic_p = (_pad_full(mic, self.n_full)
+                 if self.listen or not self._sliced else None)
         # display pairs the camera frames with the NEWEST K mic frames of
         # the (possibly larger, counter-contiguous) listening batch
-        powers = self._power(mic_p[-K:])
+        powers = self._power((mic if self._sliced else mic_p)[-K:])
         beams, lst2 = None, None
         if self.listen == "time":
             beams = beamform.miso_beam(mic_p, self.tables, d)

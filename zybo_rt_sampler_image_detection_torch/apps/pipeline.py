@@ -101,21 +101,23 @@ def _equiv_tables_if_favored(tables):
     return freq_equiv.make_equiv_tables(tables)
 
 
-def _equiv_kernel_if_favored(tables, et=None):
+def _equiv_kernel_if_favored(tables, et=None, channels: int = 0):
     """The fused equiv kernel (``ops.equiv_kernel``) for a shape inside
-    the equiv bar, else None (also when no shared-memory plan fits)."""
+    the equiv bar, its plane over the mics below ``channels`` where a
+    stage hands it channel-sliced frames, else None (also when no
+    shared-memory plan fits)."""
     if not _equiv_bar(tables):
         return None
     from ..ops import equiv_kernel
 
     try:
         return equiv_kernel.FusedEquivBeamformer(
-            et if et is not None else tables)
+            et if et is not None else tables, channels=channels)
     except ValueError:                  # no shared-memory plan for the shape
         return None
 
 
-def _select_power_backend(tables):
+def _select_power_backend(tables, channels: int = 0):
     """Production backend selection for the heatmap stage.
 
     Returns ``(kind, obj)``:
@@ -133,18 +135,24 @@ def _select_power_backend(tables):
       (:func:`beamform.steered_power`): the ``highest`` rung's
       ground-truth contract, and CPU tensors.  The name is the JAX
       package's.
+
+    ``channels``: the rows of the channel-sliced batches a full-rate
+    stage hands the program (0: whole frames).  The equiv kernel then
+    builds its plane over the mics below it alone
+    (``FusedEquivBeamformer(channels=)``); the other kinds take the
+    batches padded back to whole frames.
     """
     if isinstance(tables, freq.FreqTables):
         return "fft", tables
     if tables.precision != "highest" and tables.device.type == "cuda":
         et = _equiv_tables_if_favored(tables)
         if et is not None:
-            k = _equiv_kernel_if_favored(tables, et)
+            k = _equiv_kernel_if_favored(tables, et, channels)
             if k is not None:
                 return "equiv_kernel", k
             return "freq_equiv", et
         if tables.precision == "default":
-            k = _equiv_kernel_if_favored(tables)
+            k = _equiv_kernel_if_favored(tables, channels=channels)
             if k is not None:
                 return "equiv_kernel", k
         from ..ops.fused_kernel import FusedBeamformer
@@ -159,7 +167,11 @@ def default_power_fn(tables):
     """Production policy for the heatmap stage's device program.  The
     returned callable takes ``(M, N)`` frames and ``(B, M, N)`` batches
     (tensors on the tables' device) and returns (X, Y) / (B, X, Y)."""
-    kind, obj = _select_power_backend(tables)
+    return _policy_fn(tables, *_select_power_backend(tables))
+
+
+def _policy_fn(tables, kind, obj):
+    """The callable of the kind the policy picked."""
     if kind in ("equiv_kernel", "fused"):
         return obj            # __call__ squeezes 2-D frames
     if kind == "freq_equiv":
@@ -309,17 +321,33 @@ def make_mvdr_stream(cfg: Config, kind: str = "maps", alpha: float = 0.9,
     return fn
 
 
-def _batched_power_program(tables, n_full):
+def _batched_power_program(tables, n_full, channels: int = 0):
     """The ``(B, Mc, N) -> (B, X, Y)`` device program of the full-rate
     stage: the production policy (:func:`default_power_fn`) behind the
     :func:`_pad_full` prologue.
+
+    Where the stage slices the frames to its ``channels`` connected rows
+    and the policy picks the equiv kernel, K1 runs on a plane over those
+    channels alone and takes the sliced batch as it comes (its gather
+    upcasts f16 transfers): no pad, and none of the zero rows' work.  The
+    program is then the ``FusedEquivBeamformer`` itself, whose
+    ``channels`` is nonzero (:func:`_takes_sliced`).
 
     The JAX package builds it from ``_power_program_parts`` so that the
     tables enter its jit as arguments; PyTorch runs eagerly, so the
     policy's callable serves as it is, and the input buffer the stage
     reuses takes the place of the jit's input donation."""
-    fn = default_power_fn(tables)
+    kind, obj = _select_power_backend(tables, channels=channels)
+    if kind == "equiv_kernel" and _takes_sliced(obj):
+        return obj
+    fn = _policy_fn(tables, kind, obj)
     return lambda frames: fn(_pad_full(frames, n_full))
+
+
+def _takes_sliced(power_fn) -> bool:
+    """Whether a batched power program takes the stage's channel-sliced
+    batches unpadded (:func:`_batched_power_program`)."""
+    return bool(getattr(power_fn, "channels", 0))
 
 
 def _sharded_power_program(mesh, tables):
@@ -678,7 +706,7 @@ class BatchedHeatmapProducer(BatchedStage):
                                  "batches (channels=0, transfer='f32')")
             power_fn = _sharded_power_program(mesh, tables)
         elif power_fn is None:
-            power_fn = _batched_power_program(tables, n_full)
+            power_fn = _batched_power_program(tables, n_full, channels)
         elif ((channels and channels < n_full) or transfer != "f32") \
                 and not getattr(power_fn, "pads_in_program", False):
             # a custom power_fn takes full-width f32 (B, M, N) batches:
@@ -1307,12 +1335,13 @@ class Pipeline:
         if beam == "time":
             power_fn = (self._power_fn if self._power_fn is not None
                         else _batched_power_program(self.power_tables,
-                                                    n_full))
+                                                    n_full, channels))
+            sliced = _takes_sliced(power_fn)
 
             def process_fn(frames, d):
-                frames = _pad_full(frames, n_full)
-                return power_fn(frames), beamform.miso_beam(frames, tables,
-                                                            d)
+                padded = _pad_full(frames, n_full)
+                return (power_fn(frames if sliced else padded),
+                        beamform.miso_beam(padded, tables, d))
 
             if hasattr(power_fn, "reset"):       # a stateful power_fn
                 process_fn.reset = power_fn.reset

@@ -756,16 +756,44 @@ class FusedEquivBeamformer:
     The class holds one response plane ``H1`` and the sparse head
     corrections ``wc`` (:class:`HeadCorrections`), built once here.
 
-    Raises ``ValueError`` for an unknown mode or sweep and when no frame
-    tile's shared memory fits one H100 block.
+    ``channels``: the rows of the channel-sliced frames (B, channels, N)
+    the forward takes, as a full-rate stage reads them from the ring.
+    Every mic of a slot at or past ``channels`` is exactly zero there, so
+    the plane, the corrections and the gather span the mics below it
+    alone (K = 2M shrinks with M); the normalisation keeps the full mic
+    count, and the maps are the same numbers.  ``self.channels`` is then
+    ``channels``; it is 0 where no mic lies past the slice (``channels``
+    0 or the whole frame), and the forward takes whole frames.
+    ``FusedEquivBeamformer.trimmed_calls`` counts the calls of such a
+    forward, ``FusedEquivBeamformer.trimmed_mics`` holds the mics of the
+    newest one's plane.
+
+    Raises ``ValueError`` for an unknown mode or sweep, when no frame
+    tile's shared memory fits one H100 block, and when no active mic lies
+    below ``channels``.
     """
 
+    trimmed_calls = 0
+    trimmed_mics = 0
+
     def __init__(self, t, mode: Optional[str] = None,
-                 plan_override: Optional[tuple] = None, sweep: str = "df"):
+                 plan_override: Optional[tuple] = None, sweep: str = "df",
+                 channels: int = 0):
         if sweep not in ("df", "fd"):
             raise ValueError(f"sweep must be 'df' or 'fd', got {sweep!r}")
         self.sweep = sweep
         et = t if isinstance(t, EquivFreqTables) else make_equiv_tables(t)
+        H, Wc, adaptive = et.H, et.Wc, et.adaptive
+        n_active = H.shape[1]
+        kept = adaptive < channels
+        self.channels = 0
+        if channels and not bool(kept.all()):
+            if not bool(kept.any()):
+                raise ValueError(f"equiv kernel: no active mic below "
+                                 f"channel {channels}")
+            H, adaptive = H[:, kept], adaptive[kept]
+            Wc = None if Wc is None else Wc[..., kept]
+            self.channels = channels
         if mode is None:
             mode = {"high": "high", "highest": "f32"}.get(et.precision,
                                                           "bf16")
@@ -779,9 +807,9 @@ class FusedEquivBeamformer:
         self.device = et.H.device
         self.plane_dtype = (torch.bfloat16 if mode == "bf16"
                             else torch.float32)
-        D, M, Fb = et.H.shape
+        D, M, Fb = H.shape
         Tt = et.ib_re.shape[1]
-        Tc = 0 if et.Wc is None else et.Wc.shape[2]
+        Tc = 0 if Wc is None else Wc.shape[2]
         self.D, self.M, self.F, self.N, self.L = D, M, Fb, et.n_samples, et.L
         self.n_tail, self.Tc, self.Tt = et.n_tail, Tc, Tt
         self.corr_js = et.corr_js
@@ -828,7 +856,7 @@ class FusedEquivBeamformer:
         cf = et.cf.double()
         scf = torch.sqrt(cf).float()                                # (F,)
         inv_scf = (1.0 / torch.sqrt(cf)).float()
-        self.H1 = make_plane(et.H, scf, self.KP, self.DP, self.FP,
+        self.H1 = make_plane(H, scf, self.KP, self.DP, self.FP,
                              self.TD).to(self.plane_dtype)
 
         def basis(ib):
@@ -841,11 +869,10 @@ class FusedEquivBeamformer:
 
         self.ib1 = basis(et.ib_re)
         self.ib2 = basis(et.ib_im)
-        self.wc = (make_head_corrections(et.Wc, self.DP) if Tc else None)
+        self.wc = (make_head_corrections(Wc, self.DP) if Tc else None)
         ident = torch.arange(M, device=self.device)
-        self.adaptive = (None if torch.equal(et.adaptive, ident)
-                         else et.adaptive)
-        self.inv = float(np.float32(1.0 / (self.N * M * M)))
+        self.adaptive = (None if torch.equal(adaptive, ident) else adaptive)
+        self.inv = float(np.float32(1.0 / (self.N * n_active * n_active)))
 
     @property
     def table_bytes(self) -> int:
@@ -920,6 +947,9 @@ class FusedEquivBeamformer:
         if squeeze:
             signals = signals[None]
         B = signals.shape[0]
+        if self.channels:
+            FusedEquivBeamformer.trimmed_calls += 1
+            FusedEquivBeamformer.trimmed_mics = self.M
         with annotate("power.inputs"):
             S, sj, bt = self.kernel_inputs(signals)
         args = (S, self.H1, self.ib1, self.ib2, sj, self.wc)

@@ -69,7 +69,8 @@ Phases (any failure raises, so the exit code is non-zero):
    drifting-tone frames through ``make_mvdr_stream("maps")`` in complex64
    against the same stream in complex128 (every map finite, worst
    direction within 0.05 on every frame); (c) the full-rate heatmap stage
-   with that stream (K=16, 192 channels, 4 s at line rate; 0 skipped, 0
+   of ``Pipeline(cfg, "mvdr")``, which takes the route's stream as it is
+   (K=16, 192 channels, 4 s at line rate; 0 skipped, 0
    gaps), and the device ms of one batch's scan, of ``mvdr_d0`` and of
    ``refresh_precision``, each with its bound; (d) the combined stage
    with ``beam="mvdr"`` (maps and beams from one state update; 0 skipped,
@@ -739,7 +740,7 @@ def _live_run(label: str, p, counter, sig: np.ndarray, tx: int,
     assert abs(pk[0] - tx) <= 1 and abs(pk[1] - ty) <= 1, "peak misplaced"
 
     x = torch.from_numpy(frame).cuda()
-    got = p._power_fn(x)
+    got = p.stages[-1].power_fn(x)
     ref = beamform.steered_power(x, p.tables)
     torch.cuda.synchronize()
     err = rel_err(got, ref)
@@ -761,10 +762,10 @@ def phase_end_to_end() -> dict:
     t0 = time.perf_counter()
     p = pipeline.Pipeline(cfg, "lerp", replay_mode=True, backend="native",
                           power_backend="equiv_kernel", device="cuda")
-    print(f"[e2e] pipeline built in {time.perf_counter() - t0:.2f} s "
-          f"(kernel mode {p._power_fn.mode})")
+    print(f"[e2e] pipeline built in {time.perf_counter() - t0:.2f} s")
     out = {"equiv": _live_run("power_backend=equiv_kernel", p,
                               (ek.equiv_power, "launches"), sig, tx, ty)}
+    print(f"[e2e] kernel mode {p.stages[-1].power_fn.mode}")
     del p
     torch.cuda.empty_cache()
 
@@ -952,10 +953,11 @@ def phase_fullrate() -> dict:
                                  (fk.fused_power, "launches"))
 
     def make_equiv():
+        # the program power_backend="equiv_kernel" builds, recorded
+        tables = beamform.make_tables(cfg, "lerp", device="cuda")
+        rec = _Recorder(ek.FusedEquivBeamformer(tables))
         p = pipeline.Pipeline(cfg, "lerp", replay_mode=True,
-                              backend="native", device="cuda",
-                              power_backend="equiv_kernel")
-        p._power_fn = rec = _Recorder(p._power_fn)
+                              backend="native", device="cuda", power_fn=rec)
         return p, rec
 
     out["equiv"] = _fullrate_run("power_backend=equiv_kernel", make_equiv,
@@ -1105,10 +1107,10 @@ def _listen_run(label: str, p, counter, card: str) -> dict:
     # the device program per batch, CUDA events, in turns: the combined
     # program against the power program alone (the beam's added cost)
     xs = rec.x.contiguous()
-    power_fn = p._power_fn or pipeline._batched_power_program(p.tables,
-                                                              n_full)
+    power_fn = pipeline.power_program(p.tables, n_full,
+                                      power_fn=p._power_fn)
     comb_ms, power_ms = in_turns(
-        lambda: power_fn(pipeline._pad_full(xs, n_full)),
+        lambda: power_fn(xs),
         lambda: stage.process_fn.fn(xs, d), 10)
     beam_ms = time_ms(
         lambda: beamform.miso_beam(pipeline._pad_full(xs, n_full), p.tables,
@@ -1408,9 +1410,8 @@ def phase_mvdr_fullrate(card: str) -> dict:
     from zybo_rt_sampler_image_detection_torch.ops import freq
 
     cfg = Config()
-    fn = pipeline.make_mvdr_stream(cfg, "maps")
-    p = pipeline.Pipeline(cfg, "lerp", replay_mode=True, backend="native",
-                          device="cuda", power_fn=fn)
+    p = pipeline.Pipeline(cfg, "mvdr", replay_mode=True, backend="native",
+                          device="cuda")
     seen = {"maps": 0, "finite": True}
 
     def sink(powers, first_seq):
@@ -1419,7 +1420,8 @@ def phase_mvdr_fullrate(card: str) -> dict:
 
     stage = p.make_heatmap_batched(batch=FULLRATE_BATCH,
                                    channels=FULLRATE_CHANNELS, sink=sink)
-    assert stage.power_fn is fn, "the stage wrapped the stream"
+    fn = stage.power_fn
+    assert fn.tables is p.power_tables, "the stage wrapped the stream"
     stage.warmup()
     assert fn.state["n"] == 0, "warm-up left the stream's state polluted"
     _, elapsed, sent, marks = _line_rate(p, stage, None)

@@ -319,9 +319,12 @@ def test_trimmed_k1_matches_untrimmed(cuda, mode, B):
 
 def test_trim_counter_follows_the_channel_slice(cuda):
     """The full-rate stage of each benchmark configuration, sliced to its
-    connected channels: every cfgjson batch runs the trimmed plane (192
-    mics), no onboard64 batch (64 channels of a 64-slot frame) and no
-    batch of the fft route, sliced or not."""
+    connected channels: cfgjson's program is K1 over the 192 connected
+    mics (KP 384), onboard64's (64 channels of a 64-slot frame) the
+    untrimmed K1 behind the pad, one launch a batch each; the fft route,
+    sliced or not, launches ``fft_steered_power`` a batch and no K1."""
+    from zybo_rt_sampler_image_detection_torch.ops import freq
+
     cases = (("cfgjson", "lerp", None), ("onboard64", "lerp", None),
              ("webfft", "fft", None), ("webfft", "fft", 192))
     for name, algorithm, channels in cases:
@@ -330,19 +333,21 @@ def test_trim_counter_follows_the_channel_slice(cuda):
         p = pipeline.Pipeline(cfg, algorithm, replay_mode=True,
                               backend="python", device="cuda")
         stage = p.make_heatmap_batched(batch=16, channels=channels)
-        calls = tk.FusedEquivBeamformer.trimmed_calls
         stage.warmup()
+        k1, fft = tk.equiv_power.launches, freq.fft_steered_power.launches
         for i in range(3):
             x = _frames(cfg, 16, seed=i)[:, :channels]
             _, done = stage._dispatch(np.ascontiguousarray(x))
             done.synchronize()
-        n = tk.FusedEquivBeamformer.trimmed_calls - calls
+        k1 = tk.equiv_power.launches - k1
+        fft = freq.fft_steered_power.launches - fft
+        trimmed = isinstance(stage.power_fn, tk.FusedEquivBeamformer)
         if name == "cfgjson":
-            assert n == 4 and tk.FusedEquivBeamformer.trimmed_mics == 192
-            assert stage.power_fn.channels == 192
-        else:
-            assert n == 0, (name, channels)
-            assert not pipeline._takes_sliced(stage.power_fn)
+            assert trimmed and (stage.power_fn.M, stage.power_fn.KP) == (
+                192, 384)
+        assert trimmed == (name == "cfgjson"), (name, channels)
+        assert (k1, fft) == ((0, 3) if algorithm == "fft" else (3, 0)), (
+            name, channels)
 
 
 # --- fused time-domain power (csrc/time_power.cu) -------------------------
@@ -561,7 +566,7 @@ def test_fused_policy_launches_kernel(cuda, monkeypatch):
     kind, obj = pipeline._select_power_backend(t)
     assert kind == "fused" and isinstance(obj, tf.FusedBeamformer)
     before = tf.fused_power.launches
-    out = pipeline.default_power_fn(t)(
+    out = pipeline.power_program(t)(
         torch.from_numpy(_frames(Config.tiny(), 4)).to(cuda))
     torch.cuda.synchronize()
     assert out.shape == (4, 9, 7) and tf.fused_power.launches == before + 1

@@ -411,38 +411,66 @@ def card_policy(monkeypatch):
     return built
 
 
+@pytest.fixture
+def k1_planes(monkeypatch):
+    """The plane width KP of every K1 call, in order (on the CPU, where
+    ``equiv_power.launches`` counts nothing)."""
+    planes = []
+    k1 = tk.equiv_power
+
+    def recorded(S, H1, *a, **kw):
+        planes.append(H1.shape[2])          # (DP/TD, FP, KP, TD)
+        return k1(S, H1, *a, **kw)
+
+    monkeypatch.setattr(tk, "equiv_power", recorded)
+    return planes
+
+
+@pytest.fixture
+def pads(monkeypatch):
+    """The (input, output) shapes of every ``_pad_full`` call."""
+    seen = []
+    pad = pipeline._pad_full
+
+    def recorded(frames, n_full):
+        out = pad(frames, n_full)
+        seen.append((tuple(frames.shape), tuple(out.shape)))
+        return out
+
+    monkeypatch.setattr(pipeline, "_pad_full", recorded)
+    return seen
+
+
 @pytest.mark.parametrize("sliced", [0, "full", "connected"])
-def test_batched_program_trims_only_sliced_stages(card_policy, sliced):
+def test_batched_program_trims_only_sliced_stages(card_policy, k1_planes,
+                                                  pads, sliced):
     """The full-rate program builds one beamformer: over the connected
     channels where the stage slices its frames (the program is then the
-    beamformer, it takes the sliced batch and counts the call), else the
-    untrimmed tables behind ``_pad_full``, counting nothing."""
+    beamformer, and it takes the sliced batch unpadded), else the
+    untrimmed tables behind ``_pad_full``.  One K1 call a batch."""
     cfg, connected = _config("cfgjson")
     n_full = cfg.n_microphones
     channels = {0: 0, "full": n_full, "connected": connected}[sliced]
     t = tb.make_tables(cfg, "lerp", cache=False, device="cpu")
-    prog = pipeline._batched_power_program(_OnCard(t), n_full, channels)
+    prog = pipeline.power_program(_OnCard(t), n_full, channels)
     assert len(card_policy) == 1
     k = card_policy[0]
     rows = channels or n_full
     x = _sliced(cfg, rows, 16)
-    calls = tk.FusedEquivBeamformer.trimmed_calls
     out = prog(x)
     if sliced == "connected":
-        assert prog is k and pipeline._takes_sliced(prog)
-        assert (k.channels, k.M, k.KP) == (connected, connected, 384)
-        assert tk.FusedEquivBeamformer.trimmed_calls == calls + 1
-        assert tk.FusedEquivBeamformer.trimmed_mics == connected
+        assert prog is k and (k.M, k.KP) == (connected, 384)
+        assert not pads
     else:
-        assert prog is not k and not pipeline._takes_sliced(prog)
-        assert (k.channels, k.M, k.KP) == (0, n_full, 512)
-        assert tk.FusedEquivBeamformer.trimmed_calls == calls
+        assert prog is not k and (k.M, k.KP) == (n_full, 512)
+        assert pads == [((16, n_full, cfg.n_samples),) * 2]
+    assert k1_planes == [k.KP]
     ref = tk.FusedEquivBeamformer(t)(pipeline._pad_full(x, n_full))
     np.testing.assert_allclose(_np(out), _np(ref), rtol=REASSOC_RTOL,
                                atol=0)
 
 
-def test_trim_leaves_other_backends_padded(card_policy):
+def test_trim_leaves_other_backends_padded(card_policy, k1_planes, pads):
     """The exact product (CPU tables) and the fft route take the padded
     batch at a channel slice: no beamformer, no trim."""
     from zybo_rt_sampler_image_detection_torch.ops import freq
@@ -452,24 +480,26 @@ def test_trim_leaves_other_backends_padded(card_policy):
     n_full = cfg.n_microphones
     t = tb.make_tables(cfg, "lerp", cache=False, device="cpu")
     ft = freq.make_freq_tables(cfg, device="cpu")
-    calls = tk.FusedEquivBeamformer.trimmed_calls
     for tables, ref in ((t, tb.steered_power), (ft, freq.fft_steered_power)):
-        prog = pipeline._batched_power_program(tables, n_full, channels)
-        assert not pipeline._takes_sliced(prog)
+        prog = pipeline.power_program(tables, n_full, channels)
+        del pads[:]
+        got = prog(x)
+        assert pads == [((2, channels, cfg.n_samples),
+                         (2, n_full, cfg.n_samples))]
         np.testing.assert_allclose(
-            _np(prog(x)),
-            _np(ref(pipeline._pad_full(x, n_full), tables)),
+            _np(got), _np(ref(pipeline._pad_full(x, n_full), tables)),
             rtol=1e-6, atol=0)
-    assert not card_policy
-    assert tk.FusedEquivBeamformer.trimmed_calls == calls
+    assert not card_policy and not k1_planes
 
 
 def test_stages_hand_the_sliced_batch_to_the_trimmed_program(card_policy,
+                                                             k1_planes,
+                                                             pads,
                                                              monkeypatch):
     """The full-rate heatmap stage and the combined listening stage, both
     sliced to the connected channels: every batch runs the trimmed plane
-    unpadded (counted), the maps equal the untrimmed tables' on the padded
-    batch, and the combined stage's beam still takes the padded batch."""
+    unpadded, the maps equal the untrimmed tables' on the padded batch,
+    and the combined stage's beam pads its own copy."""
     cfg, channels = _config("skip2")
     p = pipeline.Pipeline(cfg, "lerp", replay_mode=True, backend="python",
                           device="cpu")
@@ -478,19 +508,79 @@ def test_stages_hand_the_sliced_batch_to_the_trimmed_program(card_policy,
                         lambda tables, channels=0: policy(_OnCard(tables),
                                                           channels))
     n_full = cfg.n_microphones
+    n_kept = int((p.tables.adaptive < channels).sum())
     x = _sliced(cfg, channels, 4)
-    ref = tk.FusedEquivBeamformer(p.tables)(pipeline._pad_full(x, n_full))
-    calls = tk.FusedEquivBeamformer.trimmed_calls
+    full = tk.FusedEquivBeamformer(p.tables)
+    ref = full(pipeline._pad_full(x, n_full))
+    del pads[:], k1_planes[:]
     stage = p.make_heatmap_batched(batch=4, channels=channels)
-    assert stage.power_fn is card_policy[-1] and stage.power_fn.channels
+    k = card_policy[-1]
+    assert stage.power_fn is k and k.M == n_kept < full.M
     np.testing.assert_allclose(_np(stage.launch(x)), _np(ref),
                                rtol=REASSOC_RTOL, atol=0)
     combined = p.make_mimo_miso_batched(batch=4, channels=channels)
-    assert len(card_policy) == 2 and card_policy[-1].channels == channels
+    assert len(card_policy) == 2 and card_policy[-1].M == n_kept
     maps, beams = combined.process_fn(x, 0)
+    assert k1_planes == [k.KP, k.KP]
+    # the beam's own pad, the one pad of the two batches
+    assert pads == [((4, channels, cfg.n_samples),
+                     (4, n_full, cfg.n_samples))]
     np.testing.assert_allclose(_np(maps), _np(ref), rtol=REASSOC_RTOL,
                                atol=0)
     torch.testing.assert_close(
         beams, tb.miso_beam(pipeline._pad_full(x, n_full), p.tables, 0),
         rtol=0, atol=0)
-    assert tk.FusedEquivBeamformer.trimmed_calls == calls + 2
+
+
+@pytest.mark.parametrize("name", ["cfgjson", "onboard64", "webfft"])
+def test_each_cell_runs_its_program(card_policy, k1_planes, pads,
+                                    monkeypatch, name):
+    """The benchmark's full-rate stage of each configuration (its
+    algorithm, sliced to its connected channels; the policy as on the card,
+    on a 5x3 grid): cfgjson runs K1 over its 192 connected mics (KP 384) on
+    the unpadded batch, onboard64 the untrimmed K1 behind ``_pad_full``,
+    which pads nothing, and webfft ``fft_steered_power`` behind
+    ``_pad_full``.  One kernel call a batch, and the maps of the untrimmed
+    program on the padded batch."""
+    from zybo_rt_sampler_image_detection_torch.ops import freq
+
+    cfg = _bench_config(name).replace(max_res_x=5, max_res_y=3)
+    algorithm = "fft" if name == "webfft" else "lerp"
+    n_full, B = cfg.n_microphones, 16
+    channels = cfg.active_arrays * cfg.rows * cfg.columns
+    policy = pipeline._select_power_backend
+    monkeypatch.setattr(
+        pipeline, "_select_power_backend",
+        lambda t, channels=0: policy(
+            t if isinstance(t, freq.FreqTables) else _OnCard(t), channels))
+    p = pipeline.Pipeline(cfg, algorithm, replay_mode=True, backend="python",
+                          device="cpu")
+    assert p.connected_channels == channels
+    stage = p.make_heatmap_batched(batch=B, channels=channels)
+    ffts = freq.fft_steered_power.launches
+    outs, xs = [], []
+    for i in range(3):
+        xs.append(_sliced(cfg, channels, B, seed=i))
+        outs.append(stage.launch(xs[-1]))
+    padded = list(pads)
+    if name == "webfft":
+        assert not card_policy and not k1_planes
+        assert freq.fft_steered_power.launches == ffts + 3
+        ref = [freq.fft_steered_power(x, p.power_tables) for x in xs]
+    else:
+        k, = card_policy
+        assert freq.fft_steered_power.launches == ffts
+        assert k1_planes == [k.KP] * 3
+        full = tk.FusedEquivBeamformer(p.tables)
+        ref = [full(pipeline._pad_full(x, n_full)) for x in xs]
+    if name == "cfgjson":
+        assert stage.power_fn is k and (k.M, k.KP) == (192, 384)
+        assert channels < n_full and not padded
+    else:
+        assert channels == n_full
+        assert padded == [((B, n_full, cfg.n_samples),) * 2] * 3
+    if name == "onboard64":
+        assert stage.power_fn is not k and (k.M, k.KP) == (64, 128)
+    for got, want in zip(outs, ref):
+        np.testing.assert_allclose(_np(got), _np(want), rtol=REASSOC_RTOL,
+                                   atol=0)

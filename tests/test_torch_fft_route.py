@@ -171,7 +171,7 @@ def test_route_follows_the_precision(name, precision, low, high):
     cfg = CONFIGS[name].replace(matmul_precision=precision)
     frames = _frames(cfg, 4, 2 ** 31 + 14)
     t = freq.make_freq_tables(cfg, device="cpu")
-    maps = pipeline.default_power_fn(t)(torch.from_numpy(frames)).numpy()
+    maps = pipeline.power_program(t)(torch.from_numpy(frames)).numpy()
     gap = map_gap(maps, reference.maps(cfg, "cpu", frames))
     assert low < gap < high, gap
 

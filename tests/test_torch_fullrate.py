@@ -135,13 +135,16 @@ class _FakeReceiver:
 @pytest.mark.parametrize("with_fused", [False, True])
 def test_f16_transfer_and_channel_slicing_pad_back(rng, with_fused):
     """Channel-sliced f16 batches are upcast and padded back to the full
-    mic axis before the policy's program or a custom power_fn sees them."""
+    mic axis before the policy's program or a custom power_fn sees them
+    (``power_program`` fits the program to the stage's batches)."""
     cfg = Config.northstar().replace(max_res_x=9, max_res_y=7)
     t = beamform.make_tables(cfg, "lerp", cache=False, device="cpu")
     n_ch = 48
     batch = np.zeros((2, cfg.n_microphones, cfg.n_samples), np.float32)
     batch[:, :n_ch] = rng.standard_normal((2, n_ch, cfg.n_samples)) * 0.1
-    power_fn = fused_kernel.FusedBeamformer(t) if with_fused else None
+    power_fn = (pipeline.power_program(
+        t, cfg.n_microphones, n_ch,
+        power_fn=fused_kernel.FusedBeamformer(t)) if with_fused else None)
     stage = pipeline.BatchedHeatmapProducer(
         _FakeReceiver(cfg), t, None, PipelineMetrics(), batch=2,
         power_fn=power_fn, channels=n_ch, transfer="f16")

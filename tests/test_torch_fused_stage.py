@@ -29,7 +29,7 @@ from zybo_rt_sampler_image_detection_tpu.utils.metrics import (
     PipelineMetrics as JMetrics)
 from zybo_rt_sampler_image_detection_torch.apps import demo, fused
 from zybo_rt_sampler_image_detection_torch.apps.pipeline import (
-    _batched_power_program)
+    power_program)
 from zybo_rt_sampler_image_detection_torch.config import Config
 from zybo_rt_sampler_image_detection_torch.fusion.composite import (
     DeviceCompositor)
@@ -109,8 +109,7 @@ def test_fused_program_parity(pair):
     comps, dets, mask, cls_ids, metas, beams = _run(s, mic, cams, boxes)
     assert beams is None and comps.shape == (3, 48, 80, 3)
     # 1) the compositor on the separately computed powers: equal bytes
-    powers = _batched_power_program(tables, cfg.n_microphones)(
-        torch.from_numpy(mic))
+    powers = power_program(tables, cfg.n_microphones)(torch.from_numpy(mic))
     K = s.batch
     yolos = np.broadcast_to(boxes, (K,) + boxes.shape).copy()
     ref, _, ref_meta = s.comp(powers, cams, yolos, s.comp.init_prev(),
@@ -172,8 +171,7 @@ def test_fused_ema_carry_advances(pair):
     s._boxes = none.copy()
     host, _ = s._launch(mic.copy(), cams, s.batch)
     c2 = s._unpack(host.numpy())[0]
-    powers = _batched_power_program(tables, cfg.n_microphones)(
-        torch.from_numpy(mic))
+    powers = power_program(tables, cfg.n_microphones)(torch.from_numpy(mic))
     yolos = np.broadcast_to(none, (s.batch,) + none.shape).copy()
     r1, prev, _ = s.comp(powers, cams, yolos, s.comp.init_prev())
     r2, _, _ = s.comp(powers, cams, yolos, prev)
@@ -186,10 +184,10 @@ def test_fused_ema_carry_advances(pair):
 def test_fused_stage_trims_a_sliced_stage(pair, monkeypatch, listen):
     """A stage sliced to its connected channels, under the card's pick of
     K1 at the ``high`` rung (a stand-in for the policy on CPU tables),
-    runs the plane over those channels on the unpadded batch: its
-    composites within one count of the compositor on the untrimmed maps
-    of the padded batch (the two sum the same FP32 terms in another
-    order), the beam unchanged."""
+    runs the plane over those channels on the unpadded batch, one K1 call
+    a batch: its composites within one count of the compositor on the
+    untrimmed maps of the padded batch (the two sum the same FP32 terms
+    in another order), the beam unchanged."""
     from zybo_rt_sampler_image_detection_torch.apps import pipeline
     from zybo_rt_sampler_image_detection_torch.ops import equiv_kernel
 
@@ -197,19 +195,28 @@ def test_fused_stage_trims_a_sliced_stage(pair, monkeypatch, listen):
     cfg = Config.tiny().replace(n_microphones=32, array_slots=2,
                                 matmul_precision="high")
     tables = beamform.make_tables(cfg, "lerp", cache=False, device="cpu")
-    monkeypatch.setattr(
-        pipeline, "_select_power_backend",
-        lambda t, channels=0: ("equiv_kernel",
-                               equiv_kernel.FusedEquivBeamformer(
-                                   t, channels=channels)))
+    built, planes = [], []
+    k1 = equiv_kernel.equiv_power
+
+    def policy(t, channels=0):
+        built.append(equiv_kernel.FusedEquivBeamformer(t, channels=channels))
+        return "equiv_kernel", built[-1]
+
+    def recorded(S, H1, *a, **kw):
+        planes.append(H1.shape[2])              # the plane's KP
+        return k1(S, H1, *a, **kw)
+
+    monkeypatch.setattr(pipeline, "_select_power_backend", policy)
+    monkeypatch.setattr(equiv_kernel, "equiv_power", recorded)
     st = _stage(tables, s.detector, cfg, channels=16, listen=listen)
-    assert st._sliced and st._power.channels == 16
+    k, = built
+    n_kept = int((tables.adaptive < 16).sum())
+    assert st._power is k and 0 < k.M == n_kept < tables.n_mics
     rng = np.random.default_rng(3)
     mic = (rng.standard_normal((st.Km, 16, cfg.n_samples))
            * 0.1).astype(np.float32)
-    calls = equiv_kernel.FusedEquivBeamformer.trimmed_calls
     comps, _, _, _, _, beams = _run(st, mic, cams, boxes)
-    assert equiv_kernel.FusedEquivBeamformer.trimmed_calls == calls + 1
+    assert planes == [k.KP]
     padded = torch.from_numpy(
         np.concatenate([mic, np.zeros_like(mic)], axis=1))
     powers = equiv_kernel.FusedEquivBeamformer(tables)(padded[-st.batch:])

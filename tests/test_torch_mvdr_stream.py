@@ -125,12 +125,12 @@ def test_reset_determinism():
 
 
 def test_stream_declares_in_program_padding():
-    """The batched stage does not wrap a stream that pads by itself, and
-    the stream pads channel-sliced f16 batches to the same maps as the
-    full f32 batch."""
+    """A stage takes the stream as it is and the stream pads
+    channel-sliced f16 batches itself, to the same maps as the full f32
+    batch; ``power_program``'s pad in front of a caller's stream changes
+    no value and keeps its ``reset``."""
     cfg = Config.tiny()
     fn = _stream(cfg, "maps")
-    assert fn.pads_in_program is True
 
     class _Rx:
         ring_frames = 64
@@ -153,6 +153,11 @@ def test_stream_declares_in_program_padding():
     fn.reset()
     b = _np(fn(torch.from_numpy(batch).half().float()))
     np.testing.assert_array_equal(a, b)
+    prog = pipeline.power_program(tables, cfg.n_microphones,
+                                  cfg.n_microphones - 4, power_fn=fn)
+    assert prog is not fn and prog.reset is fn.reset
+    prog.reset()
+    np.testing.assert_array_equal(_np(prog(sliced)), a)
 
 
 def test_heatmap_warmup_resets_stateful_backend():
@@ -183,6 +188,59 @@ def test_heatmap_warmup_resets_stateful_backend():
         assert fn.state["n"] == 0
     finally:
         p.stop()
+
+
+@pytest.mark.parametrize("case", ["live", "sliced", "power_backend",
+                                  "mesh"])
+def test_mvdr_is_a_pipeline_algorithm(case):
+    """``Pipeline(cfg, "mvdr")`` gives the maps of ``Pipeline(cfg, "lerp",
+    power_fn=make_mvdr_stream(cfg, "maps"))``, the form the demo and the
+    web monitor used: on the live frame, and on sliced f16 batches of the
+    full-rate stage, whose stages share the route's one stream, taken as
+    it is.  A ``power_backend`` and a ``mesh`` are refused, as on the fft
+    route."""
+    cfg = Config.tiny()
+    if case == "power_backend":
+        with pytest.raises(ValueError, match="mvdr route"):
+            pipeline.Pipeline(cfg, "mvdr", device="cpu",
+                              power_backend="equiv_kernel")
+        return
+    p = pipeline.Pipeline(cfg, "mvdr", replay_mode=True, backend="python",
+                          device="cpu")
+    if case == "mesh":
+        from zybo_rt_sampler_image_detection_torch.parallel import mesh
+
+        m = mesh.make_mesh(1, 1, devices=[torch.device("cpu")])
+        with pytest.raises(ValueError, match="mvdr route"):
+            p.make_heatmap_batched(batch=8, mesh=m)
+        return
+    q = pipeline.Pipeline(cfg, "lerp", replay_mode=True, backend="python",
+                          device="cpu", power_fn=_stream(cfg, "maps"))
+    batches = _batches(cfg, 7, 3)
+    try:
+        if case == "live":
+            progs = [r.start_heatmap(warmup=True).power_fn for r in (p, q)]
+            ins = [torch.from_numpy(b[0]) for b in batches]
+        else:
+            n_ch = cfg.n_microphones - 4
+            stages = [r.make_heatmap_batched(batch=8, channels=n_ch,
+                                             transfer="f16")
+                      for r in (p, q)]
+            for st in stages:
+                st.warmup()
+            progs = [st.power_fn for st in stages]
+            assert p.make_heatmap_batched(batch=8).power_fn is progs[0]
+            for b in batches:
+                b[:, n_ch:] = 0.0
+            ins = [torch.from_numpy(b[:, :n_ch]).half() for b in batches]
+        stream = progs[0]
+        assert stream.tables is p.power_tables and stream.state["n"] == 0
+        for x in ins:
+            np.testing.assert_array_equal(_np(progs[0](x)),
+                                          _np(progs[1](x)))
+    finally:
+        p.stop()
+        q.stop()
 
 
 def test_single_frame_live_path():

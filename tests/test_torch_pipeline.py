@@ -62,14 +62,14 @@ def test_loopback_heatmap_matches_jax(backend, port):
     frames = _source_frames(cfg, tx, ty, n=1000)
     p = pipeline.Pipeline(cfg, "lerp", replay_mode=True, backend=backend,
                           power_backend="equiv_kernel", device="cpu")
-    assert isinstance(p._power_fn, equiv_kernel.FusedEquivBeamformer)
     p.receiver.exact_reference = False
     streamer.stream_in_background(cfg, frames, n_arrays=1, delay=0.3,
                                   exact_reference=False,
                                   rate=2 * cfg.sample_rate)
     try:
         p.connect(timeout=10.0)
-        p.start_heatmap()
+        s = p.start_heatmap()
+        assert isinstance(s.power_fn, equiv_kernel.FusedEquivBeamformer)
         maps = [p.q_power.get(timeout=20.0) for _ in range(3)]
         frame, _ = p.receiver.read_frame(timeout=5.0)
         rep = p.report()
@@ -84,7 +84,7 @@ def test_loopback_heatmap_matches_jax(backend, port):
     # every streamed frame is the same source frame; the heatmap of the
     # received frame equals the JAX package's exact product
     ref = _jax_power(cfg, frame)
-    got = p._power_fn(torch.from_numpy(frame)).double().numpy()
+    got = s.power_fn(torch.from_numpy(frame)).double().numpy()
     np.testing.assert_allclose(got, ref, rtol=1e-4, atol=1e-12)
     np.testing.assert_allclose(power, ref, rtol=1e-4, atol=1e-12)
 
@@ -165,8 +165,9 @@ def test_policy_falls_back_to_freq_equiv_without_plan(monkeypatch):
 
 
 def test_default_power_fn_every_backend(monkeypatch, rng):
-    """Every kind the policy can return takes (M, N) frames and (B, M, N)
-    batches and matches the JAX exact product."""
+    """Every kind the policy can return, as the live stage's program and
+    the full-rate stage's, takes (M, N) frames and (B, M, N) batches
+    and matches the JAX exact product."""
     cfg = Config.tiny().replace(matmul_precision="high")
     t = beamform.make_tables(cfg, "lerp", cache=False, device="cpu")
     frame = (rng.standard_normal((cfg.n_microphones, cfg.n_samples))
@@ -180,14 +181,15 @@ def test_default_power_fn_every_backend(monkeypatch, rng):
     for kind, obj in kinds:
         monkeypatch.setattr(pipeline, "_select_power_backend",
                             lambda tables, _k=kind, _o=obj: (_k, _o))
-        fn = pipeline.default_power_fn(t)
+        fn = pipeline.power_program(t)
         out = fn(x).double().numpy()
         assert out.shape == ref.shape, kind
         np.testing.assert_allclose(out, ref, rtol=1e-4, atol=1e-12,
                                    err_msg=kind)
-        out3 = fn(x[None]).double().numpy()
-        np.testing.assert_allclose(out3[0], ref, rtol=1e-4, atol=1e-12,
-                                   err_msg=kind)
+        for fn in (fn, pipeline.power_program(t, cfg.n_microphones)):
+            out3 = fn(x[None]).double().numpy()
+            np.testing.assert_allclose(out3[0], ref, rtol=1e-4,
+                                       atol=1e-12, err_msg=kind)
 
 
 def test_pipeline_rejects_unknown_backend():
@@ -200,7 +202,8 @@ def test_pipeline_freq_equiv_backend():
     cfg = Config.tiny()
     p = pipeline.Pipeline(cfg, "lerp", replay_mode=True, backend="python",
                           power_backend="freq_equiv", device="cpu")
-    out = p._power_fn(torch.zeros(1, cfg.n_microphones, cfg.n_samples))
+    out = p.make_heatmap_batched(batch=1).power_fn(
+        torch.zeros(1, cfg.n_microphones, cfg.n_samples))
     assert out.shape == (1, cfg.max_res_x, cfg.max_res_y)
 
 

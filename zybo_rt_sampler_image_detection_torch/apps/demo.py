@@ -99,10 +99,9 @@ def _preset_config(args) -> Config:
 
 def _make_pipeline(args, ring_frames: int = 64, audio_sink: str = "null",
                    audio_path=None):
-    from .pipeline import Pipeline, make_mvdr_stream
+    from .pipeline import Pipeline
 
     cfg = _preset_config(args)
-    power_fn = None
     algorithm = args.algorithm
     if algorithm in ("fft", "mvdr") and (args.equiv or args.equiv_kernel):
         raise SystemExit(
@@ -110,18 +109,12 @@ def _make_pipeline(args, ring_frames: int = 64, audio_sink: str = "null",
             f"algorithms (pad/lerp/convolve/hybrid/truncated); "
             f"--algorithm {algorithm} computes power its own way and "
             f"the flags would be ignored")
-    if algorithm == "mvdr":
-        # the streaming-inverse (RLS) MVDR: batched calls (the full-rate
-        # stage) take the subspace-recursive scan (exact per-frame Capon
-        # maps + one Woodbury state update per chunk), single frames (the
-        # live loop) the per-frame recursion; the state machine owns the
-        # d0 carry and the alpha-aware refresh cadence
-        power_fn = make_mvdr_stream(cfg, "maps", device=args.device)
-        algorithm = "lerp"
+    # mvdr: the route's streaming-inverse (RLS) Capon maps, listening
+    # through lerp tables
     return Pipeline(cfg, algorithm=algorithm, replay_mode=args.replay,
                     backend=args.backend, device=args.device,
                     ring_frames=ring_frames, audio_sink=audio_sink,
-                    audio_path=audio_path, power_fn=power_fn,
+                    audio_path=audio_path,
                     power_backend=("equiv_kernel" if args.equiv_kernel
                                    else "freq_equiv" if args.equiv
                                    else "auto"))
@@ -576,8 +569,6 @@ def _start_fused(args, p, compositor, det, disp, tkw, listen):
 
     # only the connected channel rows are uploaded (the tail rows are
     # never written), the policy of demo fullrate
-    n_ch = (p.receiver.n_arrays
-            or p.cfg.active_arrays) * p.cfg.rows * p.cfg.columns
     a_sink = None
     if listen:
         from ..utils import audio as audio_mod
@@ -585,7 +576,7 @@ def _start_fused(args, p, compositor, det, disp, tkw, listen):
                                      p.cfg.sample_rate, args.audio_out)
     stage = FusedSensorStage(
         p.receiver, p.tables, compositor, det, p.q_yolo, disp, p.metrics,
-        batch=args.composite_batch, channels=min(n_ch, p.cfg.n_microphones),
+        batch=args.composite_batch, channels=p.connected_channels,
         transfer=args.transfer, display_transport=args.display_transport,
         steer_cb=lambda h, v: p.steer_cartesian_degree(h, v),
         tracker_kwargs=tkw or None, listen=listen, audio_sink=a_sink,

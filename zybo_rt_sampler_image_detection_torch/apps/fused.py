@@ -10,7 +10,7 @@ device->host copy::
                                   + composite ]   ┘   (1 packed download)
 
 * steered power: the production backend policy
-  (``pipeline._batched_power_program``, the full-rate stage's program, so
+  (``pipeline.power_program``, the full-rate stage's program, so
   the display cannot drift from production; K1 at ``Config()`` lerp
   ``high`` on the card);
 * detection: the camera frames resized on the device, then
@@ -50,8 +50,8 @@ from ..fusion.decider import SensorFusionDecider
 from ..ops import beamform
 from ..utils import imaging
 from ..utils.metrics import PipelineMetrics, history
-from .pipeline import (AudioLeg, Stage, _batched_power_program, _pad_full,
-                       _rect_conf, _takes_sliced)
+from .pipeline import (AudioLeg, Stage, _pad_full, _rect_conf,
+                       power_program)
 
 log = logging.getLogger(__name__)
 
@@ -293,9 +293,7 @@ class FusedSensorStage(Stage):
         self._det_tables = _resize_tables((Hc, Wc), (S, S),
                                           imaging._HAS_CV2, self.device)
         self._det_scale = (Wc / S, Hc / S)
-        self._power = _batched_power_program(tables, self.n_full,
-                                             self.channels)
-        self._sliced = _takes_sliced(self._power)
+        self._power = power_program(tables, self.n_full, self.channels)
         self._prev = None
         self._boxes = np.full((T, 5), -100.0, np.float32)
         self._direction = 0
@@ -343,11 +341,10 @@ class FusedSensorStage(Stage):
         packed uint8 output and the mvdr state after the batch."""
         K = self.batch
         mic, boxes, cams = self._split(packed)
-        mic_p = (_pad_full(mic, self.n_full)
-                 if self.listen or not self._sliced else None)
         # display pairs the camera frames with the NEWEST K mic frames of
         # the (possibly larger, counter-contiguous) listening batch
-        powers = self._power((mic if self._sliced else mic_p)[-K:])
+        powers = self._power(mic[-K:])
+        mic_p = _pad_full(mic, self.n_full) if self.listen else None
         beams, lst2 = None, None
         if self.listen == "time":
             beams = beamform.miso_beam(mic_p, self.tables, d)

@@ -30,7 +30,7 @@ Steering: :meth:`Pipeline.steer_cartesian_degree` /
 :meth:`Pipeline.steer_click` mirror ``main.pyx:498-528``; the direction
 indexes the tables on the device, so a steer needs no host sync and no
 rebuild.  The fused display stage (``apps/fused.py``) builds on
-:class:`Stage`, :class:`AudioLeg` and :func:`_batched_power_program`.
+:class:`Stage`, :class:`AudioLeg` and :func:`power_program`.
 """
 
 from __future__ import annotations
@@ -163,24 +163,54 @@ def _select_power_backend(tables, channels: int = 0):
     return "xla", None
 
 
-def default_power_fn(tables):
-    """Production policy for the heatmap stage's device program.  The
-    returned callable takes ``(M, N)`` frames and ``(B, M, N)`` batches
-    (tensors on the tables' device) and returns (X, Y) / (B, X, Y)."""
-    return _policy_fn(tables, *_select_power_backend(tables))
+def power_program(tables, n_full: int = 0, channels: int = 0,
+                  backend: str = "auto", power_fn=None):
+    """The one place that builds a heatmap stage's device program,
+    fitted to the batch the stage reads: one whole f32 (M, N) frame where
+    ``n_full`` is 0 (the live stage), else (B, ``channels`` or ``n_full``,
+    N) batches in the transfer dtype.  It returns (X, Y) / (B, X, Y)
+    maps.
 
+    ``backend``: ``"auto"`` (the policy, :func:`_select_power_backend`,
+    whose K1 spans the ``channels < n_full`` rows of a sliced stage and
+    takes its batch as it comes), ``"freq_equiv"``, ``"equiv_kernel"``
+    (``Pipeline(power_backend=)``) or ``"mvdr"`` (``power_fn`` is then the
+    route's :func:`make_mvdr_stream`, which takes both forms as they
+    come).  Else ``power_fn`` is a caller's program on whole f32 frames.
+    A batched stage runs every other program behind :func:`_pad_full`,
+    which keeps a stateful program's ``reset``."""
+    if backend == "mvdr":
+        return power_fn
+    sliced = 0 < channels < n_full
+    if power_fn is None:
+        from ..ops import equiv_kernel, freq_equiv
 
-def _policy_fn(tables, kind, obj):
-    """The callable of the kind the policy picked."""
-    if kind in ("equiv_kernel", "fused"):
-        return obj            # __call__ squeezes 2-D frames
-    if kind == "freq_equiv":
-        from ..ops import freq_equiv
+        if backend == "auto":
+            kind, obj = _select_power_backend(tables,
+                                              channels if sliced else 0)
+            if kind == "equiv_kernel" and sliced:
+                return obj
+        elif backend == "equiv_kernel":
+            kind, obj = backend, equiv_kernel.FusedEquivBeamformer(tables)
+        else:
+            kind, obj = backend, freq_equiv.make_equiv_tables(tables)
+        if kind in ("equiv_kernel", "fused"):
+            power_fn = obj            # __call__ squeezes 2-D frames
+        elif kind == "freq_equiv":
+            power_fn = lambda f: freq_equiv.equiv_steered_power(f, obj)  # noqa: E731
+        elif kind == "fft":
+            power_fn = lambda f: freq.fft_steered_power(f, obj)  # noqa: E731
+        else:
+            power_fn = lambda f: beamform.steered_power(f, tables)  # noqa: E731
+    if not n_full:
+        return power_fn
 
-        return lambda f: freq_equiv.equiv_steered_power(f, obj)
-    if kind == "fft":
-        return lambda f: freq.fft_steered_power(f, obj)
-    return lambda f: beamform.steered_power(f, tables)
+    def program(frames):
+        return power_fn(_pad_full(frames, n_full))
+
+    if hasattr(power_fn, "reset"):
+        program.reset = power_fn.reset
+    return program
 
 
 def _pad_full(frames: torch.Tensor, n_full: int) -> torch.Tensor:
@@ -315,43 +345,11 @@ def make_mvdr_stream(cfg: Config, kind: str = "maps", alpha: float = 0.9,
     # then tick(k)
     fn.tick = _tick
     fn.alpha = alpha
-    # batched calls pad/upcast channel-sliced or f16 transfers themselves:
-    # the batched stages must not wrap them in a second pad
-    fn.pads_in_program = True
     return fn
 
 
-def _batched_power_program(tables, n_full, channels: int = 0):
-    """The ``(B, Mc, N) -> (B, X, Y)`` device program of the full-rate
-    stage: the production policy (:func:`default_power_fn`) behind the
-    :func:`_pad_full` prologue.
-
-    Where the stage slices the frames to its ``channels`` connected rows
-    and the policy picks the equiv kernel, K1 runs on a plane over those
-    channels alone and takes the sliced batch as it comes (its gather
-    upcasts f16 transfers): no pad, and none of the zero rows' work.  The
-    program is then the ``FusedEquivBeamformer`` itself, whose
-    ``channels`` is nonzero (:func:`_takes_sliced`).
-
-    The JAX package builds it from ``_power_program_parts`` so that the
-    tables enter its jit as arguments; PyTorch runs eagerly, so the
-    policy's callable serves as it is, and the input buffer the stage
-    reuses takes the place of the jit's input donation."""
-    kind, obj = _select_power_backend(tables, channels=channels)
-    if kind == "equiv_kernel" and _takes_sliced(obj):
-        return obj
-    fn = _policy_fn(tables, kind, obj)
-    return lambda frames: fn(_pad_full(frames, n_full))
-
-
-def _takes_sliced(power_fn) -> bool:
-    """Whether a batched power program takes the stage's channel-sliced
-    batches unpadded (:func:`_batched_power_program`)."""
-    return bool(getattr(power_fn, "channels", 0))
-
-
 def _sharded_power_program(mesh, tables):
-    """The mesh's twin of :func:`_batched_power_program`: the same backend
+    """The mesh's twin of :func:`power_program`: the same backend
     policy (:func:`_select_power_backend`), each launch running the
     sharded form of the chosen path (``parallel.mesh``) on row shards the
     stage uploaded to the data devices.  Full-width f32 frames only."""
@@ -387,6 +385,9 @@ class Stage(threading.Thread):
 
 
 class HeatmapProducer(Stage):
+    """The newest frame -> ``power_fn`` (one whole f32 (M, N) frame; the
+    policy's from :func:`power_program` when None) -> q_power."""
+
     def __init__(self, receiver: Receiver, tables, q_power: queue.Queue,
                  metrics: PipelineMetrics, power_fn=None):
         super().__init__("heatmap", metrics)
@@ -394,7 +395,7 @@ class HeatmapProducer(Stage):
         self.tables = tables
         self.q_power = q_power
         self.device = tables.device
-        self.power_fn = power_fn or default_power_fn(tables)
+        self.power_fn = power_fn or power_program(tables)
 
     def run(self):
         seq = 0
@@ -679,6 +680,8 @@ class BatchedHeatmapProducer(BatchedStage):
     (the drop metric; 0 = full rate sustained), ``metric`` records
     per-batch latency.
 
+    ``power_fn``: the stage's program, fitted to the batches it reads
+    (:func:`power_program`, which builds the policy's when it is None).
     ``mesh``: split every batch over the mesh's ``data`` axis and launch
     the sharded form of the production policy
     (:func:`_sharded_power_program`); exclusive with ``power_fn``, and
@@ -696,8 +699,6 @@ class BatchedHeatmapProducer(BatchedStage):
         self.tables = tables
         self.q_power = q_power
         self.sink = sink or self._default_sink
-        self.stateful_fn = power_fn
-        n_full = receiver.cfg.n_microphones
         if mesh is not None:
             if power_fn is not None:
                 raise ValueError("mesh and power_fn are exclusive")
@@ -706,16 +707,9 @@ class BatchedHeatmapProducer(BatchedStage):
                                  "batches (channels=0, transfer='f32')")
             power_fn = _sharded_power_program(mesh, tables)
         elif power_fn is None:
-            power_fn = _batched_power_program(tables, n_full, channels)
-        elif ((channels and channels < n_full) or transfer != "f32") \
-                and not getattr(power_fn, "pads_in_program", False):
-            # a custom power_fn takes full-width f32 (B, M, N) batches:
-            # restore them first, or the active-mic gather would index
-            # past the sliced rows.  One that pads by itself (the MVDR
-            # stream) says so and is not wrapped.
-            base_fn = power_fn
-            power_fn = lambda frames: base_fn(_pad_full(frames, n_full))  # noqa: E731
-        self.power_fn = power_fn
+            power_fn = power_program(tables, receiver.cfg.n_microphones,
+                                     channels)
+        self.power_fn = self.stateful_fn = power_fn
 
     def _default_sink(self, powers: np.ndarray, first_seq: int):
         # display drop only; processing was already counted
@@ -1112,20 +1106,24 @@ class Pipeline:
     layer (``main.pyx:669-736,824-864``) as one object.
 
     ``algorithm``: a time-domain algorithm of :func:`beamform.make_tables`
-    (``"lerp"``, ``"pad"``, ...), or ``"fft"``, the web app's FFT-domain
+    (``"lerp"``, ``"pad"``, ...); ``"fft"``, the web app's FFT-domain
     Bartlett backend: the heatmap stages then run
     :func:`freq.fft_steered_power` on ``freq.make_freq_tables(cfg)``
-    (``power_tables``), and the time-domain tables of the listening
-    stages (``tables``, of ``listen_algorithm``) are built at their
-    first use.
+    (``power_tables``); or ``"mvdr"``, the streaming Capon maps: the
+    heatmap stages share one :func:`make_mvdr_stream` ``"maps"`` stream,
+    built at the first of them (``power_tables`` are then its tables).
+    On both routes the time-domain tables of the listening stages
+    (``tables``, of ``listen_algorithm``) are built at their first use.
+    Every heatmap stage takes its program from :func:`power_program`.
     ``device`` is explicit (``"cuda"`` by default); asking for CUDA with no
     GPU present raises.  ``power_backend``: ``"auto"`` (the policy of
     :func:`_select_power_backend`), ``"freq_equiv"`` (the exact plain-torch
     frequency path) or ``"equiv_kernel"`` (force the fused kernel, in the
     mode the tables' precision picks — ``f32`` at ``highest``).
-    ``power_fn``: a callable of the heatmap stages' own, e.g.
-    ``ops.fused_kernel.FusedBeamformer(tables)``, exclusive with a
-    ``power_backend`` other than ``"auto"``.  ``ring_frames``: the
+    ``power_fn``: a callable of the heatmap stages' own on whole f32
+    frames, e.g. ``ops.fused_kernel.FusedBeamformer(tables)``, exclusive
+    with a ``power_backend`` other than ``"auto"`` and with the mvdr
+    route.  ``ring_frames``: the
     receiver's frame ring, which bounds the full-rate stage's batch.
     ``audio_sink``/``audio_path``: the listening stages' default sink
     (:func:`utils.audio.make_sink` kind and WAV path)."""
@@ -1150,29 +1148,25 @@ class Pipeline:
                 f"power_fn: the backend flag selects how the time-domain "
                 f"steered power is computed, which a custom power_fn "
                 f"replaces entirely; pass one or the other")
-        if algorithm == "fft":
+        if algorithm in ("fft", "mvdr"):
             if power_backend != "auto":
                 raise ValueError(
                     f"power_backend={power_backend!r} reformulates the "
-                    f"time-domain algorithms; the fft route computes "
-                    f"power its own way")
-            self.power_tables = freq.make_freq_tables(self.cfg,
-                                                      device=self.device)
+                    f"time-domain algorithms; the {algorithm} route "
+                    f"computes power its own way")
+            if algorithm == "mvdr" and power_fn is not None:
+                raise ValueError("a custom power_fn replaces the mvdr "
+                                 "route's stream; pass one or the other")
             self._tables = None
             self._listen_algorithm = listen_algorithm
         else:
             self._tables = beamform.make_tables(self.cfg, algorithm,
                                                 device=self.device)
-            self.power_tables = self._tables
-        if power_backend == "freq_equiv":
-            from ..ops import freq_equiv
-
-            et = freq_equiv.make_equiv_tables(self.tables)
-            power_fn = lambda f: freq_equiv.equiv_steered_power(f, et)  # noqa: E731
-        elif power_backend == "equiv_kernel":
-            from ..ops import equiv_kernel
-
-            power_fn = equiv_kernel.FusedEquivBeamformer(self.tables)
+        self.power_tables = (freq.make_freq_tables(self.cfg,
+                                                   device=self.device)
+                             if algorithm == "fft" else self._tables)
+        self._power_backend = ("mvdr" if algorithm == "mvdr"
+                               else power_backend)
         self.receiver = Receiver(self.cfg, replay_mode=replay_mode,
                                  backend=backend, ring_frames=ring_frames)
         self.q_power: queue.Queue = queue.Queue(maxsize=2)
@@ -1190,12 +1184,32 @@ class Pipeline:
     @property
     def tables(self):
         """The time-domain tables: the listening stages', and the heatmap
-        stages' but on the fft route, where they are built at the first
-        use."""
+        stages' but on the fft and mvdr routes, where they are built at
+        the first use."""
         if self._tables is None:
             self._tables = beamform.make_tables(
                 self.cfg, self._listen_algorithm, device=self.device)
         return self._tables
+
+    @property
+    def connected_channels(self) -> int:
+        """The frame's leading rows the connected boards fill: the
+        stream's array count (else ``cfg.active_arrays``) of rows x columns
+        mics, at most ``n_microphones``."""
+        cfg = self.cfg
+        n_arrays = self.receiver.n_arrays or cfg.active_arrays
+        return min(n_arrays * cfg.rows * cfg.columns, cfg.n_microphones)
+
+    def _power_program(self, n_full: int = 0, channels: int = 0):
+        """The heatmap stage's program from :func:`power_program` (for
+        the live stage where ``n_full`` is 0).  The mvdr route builds its
+        stream at the first heatmap stage, and the next ones share it."""
+        if self._power_backend == "mvdr" and self._power_fn is None:
+            self._power_fn = make_mvdr_stream(self.cfg, "maps",
+                                              device=self.device)
+            self.power_tables = self._power_fn.tables
+        return power_program(self.power_tables, n_full, channels,
+                             self._power_backend, self._power_fn)
 
     # -- bring-up -------------------------------------------------------------
 
@@ -1203,8 +1217,9 @@ class Pipeline:
         return self.receiver.connect(timeout=timeout)
 
     def start_heatmap(self, warmup: bool = True):
+        power_fn = self._power_program()
         s = HeatmapProducer(self.receiver, self.power_tables, self.q_power,
-                            self.metrics, power_fn=self._power_fn)
+                            self.metrics, power_fn=power_fn)
         if warmup:
             # build kernels and first-call state before the thread starts so
             # the first live frame is not delayed by them
@@ -1229,12 +1244,16 @@ class Pipeline:
         (frames/s) throttles it for a display consumer (see
         :class:`BatchedStage`).  ``mesh``: split every batch over the
         mesh's ``data`` axis and launch the sharded production program."""
-        if mesh is not None and self._power_fn is not None:
+        if mesh is None:
+            power_fn = self._power_program(self.cfg.n_microphones, channels)
+        elif self._power_fn is not None or self._power_backend != "auto":
             raise ValueError("mesh is exclusive with a configured "
-                             "power_fn/power_backend")
+                             "power_fn/power_backend and the mvdr route")
+        else:
+            power_fn = None
         return BatchedHeatmapProducer(self.receiver, self.power_tables,
                                       self.q_power, self.metrics,
-                                      batch=batch, power_fn=self._power_fn,
+                                      batch=batch, power_fn=power_fn,
                                       sink=sink, channels=channels,
                                       transfer=transfer, max_rate=max_rate,
                                       mesh=mesh)
@@ -1322,26 +1341,23 @@ class Pipeline:
                                sink: Optional[audio_mod.AudioSink] = None,
                                power_sink=None, transfer: str = "f32"):
         """Build (don't start) the combined full-rate imaging+listening
-        stage: one transfer per batch, padded once on the device.
+        stage: one transfer per batch.
 
         ``beam='time'``: the heatmap program and the delay-and-sum beam.
-        The heatmap half is the pipeline's ``power_fn`` when it has one
-        (enabling audio must not switch the imaging semantics), else the
-        policy's program (:func:`_batched_power_program`) on
-        ``power_tables``.  ``beam='mvdr'``:
+        The heatmap half is the full-rate stage's program
+        (:func:`power_program`: enabling audio must not switch the imaging
+        semantics), on the batch as read; the beam pads its own copy.
+        ``beam='mvdr'``:
         the MVDR stream's ``"maps_beams"`` kind — ONE streaming-inverse
         update per batch shared by the Capon maps and the beam weights."""
         tables, n_full = self.tables, self.cfg.n_microphones
         if beam == "time":
-            power_fn = (self._power_fn if self._power_fn is not None
-                        else _batched_power_program(self.power_tables,
-                                                    n_full, channels))
-            sliced = _takes_sliced(power_fn)
+            power_fn = self._power_program(n_full, channels)
 
             def process_fn(frames, d):
-                padded = _pad_full(frames, n_full)
-                return (power_fn(frames if sliced else padded),
-                        beamform.miso_beam(padded, tables, d))
+                return (power_fn(frames),
+                        beamform.miso_beam(_pad_full(frames, n_full),
+                                           tables, d))
 
             if hasattr(power_fn, "reset"):       # a stateful power_fn
                 process_fn.reset = power_fn.reset

@@ -195,25 +195,13 @@ class VideoCamera:
         with self._lock:
             self._stop_locked()
             algo = _BACKENDS.get(backend, "pad")
-            # the fft route's listening and the mvdr backend's time-domain
-            # tables: pad
-            algorithm = "pad" if algo == "mvdr" else algo
-            power_fn = None
-            if algo == "mvdr":
-                # streaming-inverse (RLS) Capon map per frame; the shared
-                # state machine owns the alpha-aware refresh cadence
-                from .pipeline import make_mvdr_stream
-                power_fn = make_mvdr_stream(self.cfg, "maps",
-                                            device=self.device)
             if fused and algo in ("fft", "mvdr"):
                 # the fused cycle runs the time-domain backend policy:
                 # the fft/mvdr imaging backends stay on the host overlay
                 fused = False
-            # through the constructor, so that Pipeline's power_fn /
-            # power_backend conflict validation applies
-            p = Pipeline(self.cfg, algorithm=algorithm,
-                         replay_mode=self.replay, audio_sink="null",
-                         power_fn=power_fn, device=self.device,
+            # the fft and mvdr routes listen through pad tables
+            p = Pipeline(self.cfg, algorithm=algo, replay_mode=self.replay,
+                         audio_sink="null", device=self.device,
                          listen_algorithm="pad")
             p.connect()
             if fused:
@@ -253,12 +241,9 @@ class VideoCamera:
             window=(self.cfg.window_width, self.cfg.window_height),
             yolo_shape=cam_hw, max_tracks=8, device=self.device)
         display = _LatestComposite()
-        n_ch = ((p.receiver.n_arrays or self.cfg.active_arrays)
-                * self.cfg.rows * self.cfg.columns)
         stage = FusedSensorStage(
             p.receiver, p.tables, comp, det, p.q_yolo, display,
-            p.metrics, batch=batch,
-            channels=min(n_ch, self.cfg.n_microphones),
+            p.metrics, batch=batch, channels=p.connected_channels,
             steer_cb=lambda h, v: p.steer_cartesian_degree(h, v))
         stage.warmup()
         p.run_stage(stage)

@@ -145,10 +145,6 @@ class FrameRing:
             return src, first, first - next_seq
 
 
-# Backwards-compatible alias (the round-1 name for the latest-frame case).
-LatestFrameBuffer = FrameRing
-
-
 class Receiver:
     """Protocol-v2 UDP receiver.
 

@@ -764,17 +764,11 @@ class FusedEquivBeamformer:
     count, and the maps are the same numbers.  ``self.channels`` is then
     ``channels``; it is 0 where no mic lies past the slice (``channels``
     0 or the whole frame), and the forward takes whole frames.
-    ``FusedEquivBeamformer.trimmed_calls`` counts the calls of such a
-    forward, ``FusedEquivBeamformer.trimmed_mics`` holds the mics of the
-    newest one's plane.
 
     Raises ``ValueError`` for an unknown mode or sweep, when no frame
     tile's shared memory fits one H100 block, and when no active mic lies
     below ``channels``.
     """
-
-    trimmed_calls = 0
-    trimmed_mics = 0
 
     def __init__(self, t, mode: Optional[str] = None,
                  plan_override: Optional[tuple] = None, sweep: str = "df",
@@ -947,9 +941,6 @@ class FusedEquivBeamformer:
         if squeeze:
             signals = signals[None]
         B = signals.shape[0]
-        if self.channels:
-            FusedEquivBeamformer.trimmed_calls += 1
-            FusedEquivBeamformer.trimmed_mics = self.M
         with annotate("power.inputs"):
             S, sj, bt = self.kernel_inputs(signals)
         args = (S, self.H1, self.ib1, self.ib2, sj, self.wc)

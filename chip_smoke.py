@@ -60,12 +60,16 @@ Phases (any failure raises, so the exit code is non-zero):
    ``steer_cartesian_degree``: whole frames reach the sink, and a
    received frame's audio passes the same gate.  (c) 20 of those maps
    through ``viz.Front.multi_loop`` on an array display.
-8. FFT and MVDR (``ops.freq``; plain torch, no kernel of its own): (a)
-   the Bartlett map of the golden reference frame at ``Config()``
-   (100-20000 Hz) and ``Config.fft_reference()`` against the complex128
-   run of the same function (rtol 2e-4 / atol 1e-6) and its distance to
-   the golden rows, with the time per call at B=1 and B=16 beside one
-   ``torch.matmul`` of the complex steering product; (b) 20 batches of 16
+8. FFT and MVDR (``ops.freq``; the Bartlett contraction is
+   ``csrc/bartlett_power.cu``, the rest plain torch): (a) the Bartlett
+   map of the golden reference frame at ``Config()`` (100-20000 Hz) and
+   ``Config.fft_reference()`` against the complex128 run of the same
+   function (rtol 2e-4 / atol 1e-6) and its distance to the golden rows;
+   at B=1 and B=16 random frames through the route at the same gate, the
+   kernel against its plain version (map gap 1e-5), and the time per call
+   of the route and of the kernel beside their bounds, the plain version
+   and one ``torch.matmul`` of the complex steering product; the fft
+   full-rate stage launches ``bartlett_power`` once a batch; (b) 20 batches of 16
    drifting-tone frames through ``make_mvdr_stream("maps")`` in complex64
    against the same stream in complex128 (every map finite, worst
    direction within 0.05 on every frame); (c) the full-rate heatmap stage
@@ -182,6 +186,7 @@ KERNEL_REPLACES = f"{TPU_OPS}/equiv_kernel.py:74"
 FD_SOURCE = f"{CSRC}/equiv_power_fd.cu"
 FD_REPLACES = f"{TPU_OPS}/equiv_kernel.py:198"
 TIME_SOURCE = f"{CSRC}/time_power.cu"
+BARTLETT_SOURCE = f"{CSRC}/bartlett_power.cu"   # replaces no TPU kernel
 # one kernel for K2 (:128), K3 (:212) and K4 (:363)
 TIME_REPLACES = [f"{TPU_OPS}/pallas_kernels.py:{n}" for n in (128, 212, 363)]
 # max cellwise relative error of the kernel against its plain version
@@ -210,6 +215,11 @@ LISTEN_RTOL, LISTEN_ATOL = 1e-4, 1e-7
 # audio lag limit of phase 7 (three batch periods at line rate) and the
 # frame period (the live stage's limit)
 BARTLETT_RTOL, BARTLETT_ATOL = 2e-4, 1e-6
+# the Bartlett kernel against its plain version: the widest gap of a map
+# over its largest value (tests/test_torch_cuda.py's BARTLETT_GAP); and
+# the batches of the fft full-rate stage whose launches are counted
+BARTLETT_GAP = 1e-5
+BARTLETT_BATCHES = 8
 MVDR_DRIFT = 0.05
 MVDR_BATCHES = 20
 AUDIO_LIMIT_MS = 3 * FULLRATE_BATCH * 256 / 48828 * 1e3
@@ -227,9 +237,10 @@ VISION_FRAMES = 30
 def zero_counts() -> None:
     """Every kernel wrapper's launch count to 0, just before a path runs."""
     from zybo_rt_sampler_image_detection_torch.ops import (
-        equiv_kernel as ek, fused_kernel as fk)
+        bartlett_kernel as bk, equiv_kernel as ek, fused_kernel as fk)
 
-    for wrapper in (ek.equiv_power, ek.equiv_power_fd, fk.fused_power):
+    for wrapper in (ek.equiv_power, ek.equiv_power_fd, fk.fused_power,
+                    bk.bartlett_power):
         wrapper.launches = 0
 
 
@@ -324,6 +335,23 @@ def time_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
+def device_ms(fn, iters: int) -> dict:
+    """Mean device time a call of each kernel ``fn`` launches
+    (``torch.profiler``'s CUDA activity over ``iters`` calls, after one
+    warm-up): {kernel name: ms}.  Unlike :func:`time_ms`, host gaps
+    between launches do not count."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    return {e.key: e.device_time_total / iters / 1e3
+            for e in prof.key_averages() if e.device_time_total > 0}
+
+
 def call_ms(fn, iters: int) -> float:
     """Mean wall time of ``fn`` and its wait for the device, a call at a
     time (host clock): what a caller that reads each result waits."""
@@ -356,7 +384,7 @@ def phase_card_and_build():
           f"device {torch.cuda.get_device_name(0)}")
     from zybo_rt_sampler_image_detection_torch.ops import _build
 
-    names = ("equiv_power", "time_power", "equiv_power_fd")
+    names = ("equiv_power", "time_power", "equiv_power_fd", "bartlett_power")
     t0 = time.perf_counter()
     # one nvcc per source, started together
     with concurrent.futures.ThreadPoolExecutor(len(names)) as pool:
@@ -1256,15 +1284,35 @@ def _cplx_bytes(*shape) -> int:
 
 def phase_bartlett(card: str) -> dict:
     """(a) Bartlett on the golden reference frame at Config() (100-20000
-    Hz) and Config.fft_reference(), against the complex128 run of the same
-    function, with its distance to the golden rows (recorded on the CPU);
-    the time per call at B=1 and B=16 against one ``torch.matmul`` of the
-    (F, B, M) x (F, M, D) complex steering product, and the bound: bytes
-    of the steering tensor, the frames and the maps once; operations of
-    the complex product (8 F B M D), the squares and sums, and the rfft
-    (2.5 N log2 N a row)."""
+    Hz) and Config.fft_reference(), through the Bartlett kernel, against
+    the complex128 run of the same function, with its distance to the
+    golden rows (recorded on the CPU); at B=1 and B=16, random frames
+    through the route against their complex128 run (the same gate), the
+    kernel alone (``bartlett_power`` on the rfft) against its plain
+    version (map gap at most ``BARTLETT_GAP``), and the time per call of
+    the route (rfft and kernel) against its bound (bytes of the steering
+    tensor, the frames and the maps once; operations of the complex
+    product (8 F B M D), the squares and sums, and the rfft (2.5 N log2 N
+    a row)), of the kernel in turns with its plain version against the
+    kernel's bound (the tensor, the spectra it reads and the maps; 8 F B M
+    D), and of one ``torch.matmul`` of the (F, B, M) x (F, M, D) complex
+    steering product (the library yardstick; the port never calls it).
+    Then the fft full-rate stage of Config.fft_reference() (the web app's
+    program, B=16) with the launch counts zeroed: one ``bartlett_power``
+    launch a batch.  Returns the kernel's figures at the web app's shape,
+    B=16, and those launches."""
+    from zybo_rt_sampler_image_detection_torch.apps import pipeline
     from zybo_rt_sampler_image_detection_torch.config import Config
+    from zybo_rt_sampler_image_detection_torch.ops import bartlett_kernel as bk
     from zybo_rt_sampler_image_detection_torch.ops import freq
+
+    def excess(got, ref):
+        return ((got.double() - ref).abs()
+                / (BARTLETT_RTOL * ref.abs() + BARTLETT_ATOL)).max().item()
+
+    def map_gap(got, ref):
+        got, ref = got.double().flatten(1), ref.double().flatten(1)
+        return ((got - ref).abs().amax(1) / ref.amax(1)).max().item()
 
     golden = np.load(os.path.join(HERE, "tests", "golden",
                                   "reference_heatmaps.npz"))
@@ -1279,39 +1327,99 @@ def phase_bartlett(card: str) -> dict:
         ref = freq.fft_steered_power(frame.double(), t)
         torch.cuda.synchronize()
         assert torch.isfinite(got).all(), label
-        excess = ((got.double() - ref).abs()
-                  / (BARTLETT_RTOL * ref.abs() + BARTLETT_ATOL)).max().item()
         gold = golden[row]
         g_err = float((np.abs(got.cpu().numpy() - gold)
                        / np.abs(gold)).max())
         F, M, D = t.phase.shape
         print(f"[fft] {label}: F={F} M={M} D={D}; vs its complex128 run "
-              f"{excess:.3f} of the rtol {BARTLETT_RTOL:.0e} / atol "
-              f"{BARTLETT_ATOL:.0e} gate; vs the golden row '{row}' max "
-              f"rel {g_err:.3e} (the JAX gate 1e-5, rows recorded on the "
-              f"CPU) [{card}]")
-        assert excess <= 1.0, f"Bartlett outside its gate: {label}"
+              f"{excess(got, ref):.3f} of the rtol {BARTLETT_RTOL:.0e} / "
+              f"atol {BARTLETT_ATOL:.0e} gate; vs the golden row '{row}' "
+              f"max rel {g_err:.3e} (the JAX gate 1e-5, rows recorded on "
+              f"the CPU) [{card}]")
+        assert excess(got, ref) <= 1.0, f"Bartlett outside its gate: {label}"
         gen = torch.Generator("cuda").manual_seed(8642)
+        adaptive, bins, extent = t.kernel_indices
         for B in (1, FULLRATE_BATCH):
             x = torch.randn(B, cfg.n_microphones, cfg.n_samples,
                             device="cuda", generator=gen) * 0.05
+            r_exc = excess(freq.fft_steered_power(x, t),
+                           freq.fft_steered_power(x.double(), t))
             S = freq._frame_fft(x, t).transpose(0, 1).contiguous()
+            spec = torch.fft.rfft(x, dim=-1)
             iters = 20 if B == 1 else 10
+            before = bk.bartlett_power.launches
             call = time_ms(lambda: freq.fft_steered_power(x, t), iters)
+            assert bk.bartlett_power.launches == before + iters + 1, label
+
+            def kern():
+                return bk.bartlett_power(spec, t.phase_tiles, adaptive, bins,
+                                         D=D, extent=extent)
+
+            def plain():
+                return bk.bartlett_power_plain(spec, t.phase_tiles,
+                                               adaptive, bins, D=D)
+
+            k_ms, p_ms = in_turns(plain, kern, iters)
+            k_gap = map_gap(kern(), plain())
+            dev = device_ms(lambda: freq.fft_steered_power(x, t), iters)
+            k_dev = sum(v for k, v in dev.items() if "bartlett" in k)
             lib = time_ms(lambda: torch.matmul(S, t.phase), iters)
             N = cfg.n_samples
             bd = bound(_cplx_bytes(F, M, D) + 4 * B * cfg.n_microphones * N
                        + 4 * B * D,
                        8 * F * B * M * D + 3 * F * B * D
                        + 2.5 * B * M * N * np.log2(N))
-            print(f"[fft] {label} B={B:2d}: fft_steered_power "
-                  f"{call:.4f} ms, torch.matmul (F, B, M) x (F, M, D) "
-                  f"complex64 {lib:.4f} ms | bound {bd['bound_ms']:.4f} ms "
-                  f"({bd['bound_by']}) [{card}]")
-            if row == "fft":
-                out[f"B{B}"] = dict(ms=call, matmul_ms=lib, **bd)
+            kb = bound(_cplx_bytes(F, M, D) + _cplx_bytes(B, M, F)
+                       + 4 * B * D, 8 * F * B * M * D)
+            print(f"[fft] {label} B={B:2d}: route vs its complex128 run "
+                  f"{r_exc:.3f} of the gate; fft_steered_power "
+                  f"{call:.4f} ms, device "
+                  + ", ".join(f"{k[:40]} {v:.4f}" for k, v in dev.items())
+                  + f" ms | bound {bd['bound_ms']:.4f} ms "
+                  f"({bd['bound_by']}); bartlett_power {k_ms:.4f} ms "
+                  f"(device {k_dev:.4f}, both passes), "
+                  f"plain {p_ms:.4f} ms (map gap {k_gap:.2e}, limit "
+                  f"{BARTLETT_GAP:.0e}), torch.matmul (F, B, M) x (F, M, D) "
+                  f"complex64 {lib:.4f} ms | kernel bound "
+                  f"{kb['bound_ms']:.4f} ms ({kb['bound_by']}, "
+                  f"{kb['bound_ms'] / k_dev:.1%} of it); frame tile "
+                  f"{bk.frame_tile(B)} [{card}]")
+            assert r_exc <= 1.0, f"Bartlett route outside its gate: {label}"
+            assert k_gap <= BARTLETT_GAP, f"bartlett_power vs plain: {label}"
+            if row == "fft_reference_profile" and B == FULLRATE_BATCH:
+                out = dict(ms=k_ms, device_ms=k_dev, plain_ms=p_ms,
+                           library_ms=lib, route_ms=call, map_gap=k_gap,
+                           **kb)
         del t
         torch.cuda.empty_cache()
+
+    # the web app's program: the fft full-rate stage at B=16
+    cfg = Config.fft_reference()
+    p = pipeline.Pipeline(cfg, "fft", replay_mode=True, backend="python",
+                          device="cuda")
+    stage = p.make_heatmap_batched(
+        batch=FULLRATE_BATCH,
+        channels=cfg.active_arrays * cfg.rows * cfg.columns)
+    stage.warmup()
+    rng = np.random.default_rng(5)
+    zero_counts()
+    fft_before = freq.fft_steered_power.launches
+    for _ in range(BARTLETT_BATCHES):
+        x = (rng.standard_normal((FULLRATE_BATCH, stage.channels,
+                                  cfg.n_samples)) * 0.05).astype(np.float32)
+        host, done = stage._dispatch(x)
+        done.synchronize()
+        assert host.shape[0] == FULLRATE_BATCH and np.isfinite(
+            host.numpy()).all()
+    launches = bk.bartlett_power.launches
+    fft = freq.fft_steered_power.launches - fft_before
+    print(f"[fft] Pipeline(Config.fft_reference(), 'fft') full-rate stage, "
+          f"{BARTLETT_BATCHES} batches of {FULLRATE_BATCH}: bartlett_power "
+          f"launches {launches}, fft_steered_power calls {fft}")
+    assert launches == fft == BARTLETT_BATCHES, (launches, fft)
+    out["launches"] = launches
+    del p, stage
+    torch.cuda.empty_cache()
     return out
 
 
@@ -3100,7 +3208,7 @@ def main() -> int:
     listen = phase_listen_fullrate(card)
     listen_live = phase_listen_live(card)
     t6 = time.perf_counter()
-    phase_bartlett(card)
+    main_b = phase_bartlett(card)
     phase_mvdr_oracle(card)
     phase_mvdr_fullrate(card)
     phase_mvdr_listen(card)
@@ -3152,6 +3260,10 @@ def main() -> int:
     kernels.append(dict(
         name="equiv_power_fd", route="cuda", source=FD_SOURCE,
         replaces=FD_REPLACES, launches=full["fd"]["launches"], **main_fd))
+    # launches: the fft full-rate stage of Config.fft_reference() (8 a)
+    kernels.append(dict(
+        name="bartlett_power", route="cuda", source=BARTLETT_SOURCE,
+        replaces=None, **main_b))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

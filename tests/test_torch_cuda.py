@@ -15,6 +15,7 @@ import torch
 
 from zybo_rt_sampler_image_detection_torch import Config
 from zybo_rt_sampler_image_detection_torch.apps import pipeline
+from zybo_rt_sampler_image_detection_torch.ops import bartlett_kernel as bk
 from zybo_rt_sampler_image_detection_torch.ops import beamform as tb
 from zybo_rt_sampler_image_detection_torch.ops import equiv_kernel as tk
 from zybo_rt_sampler_image_detection_torch.ops import fused_kernel as tf
@@ -322,7 +323,8 @@ def test_trim_counter_follows_the_channel_slice(cuda):
     connected channels: cfgjson's program is K1 over the 192 connected
     mics (KP 384), onboard64's (64 channels of a 64-slot frame) the
     untrimmed K1 behind the pad, one launch a batch each; the fft route,
-    sliced or not, launches ``fft_steered_power`` a batch and no K1."""
+    sliced or not, launches ``fft_steered_power`` and the Bartlett kernel
+    a batch and no K1."""
     from zybo_rt_sampler_image_detection_torch.ops import freq
 
     cases = (("cfgjson", "lerp", None), ("onboard64", "lerp", None),
@@ -335,12 +337,14 @@ def test_trim_counter_follows_the_channel_slice(cuda):
         stage = p.make_heatmap_batched(batch=16, channels=channels)
         stage.warmup()
         k1, fft = tk.equiv_power.launches, freq.fft_steered_power.launches
+        bart = bk.bartlett_power.launches
         for i in range(3):
             x = _frames(cfg, 16, seed=i)[:, :channels]
             _, done = stage._dispatch(np.ascontiguousarray(x))
             done.synchronize()
         k1 = tk.equiv_power.launches - k1
         fft = freq.fft_steered_power.launches - fft
+        assert bk.bartlett_power.launches - bart == fft, (name, channels)
         trimmed = isinstance(stage.power_fn, tk.FusedEquivBeamformer)
         if name == "cfgjson":
             assert trimmed and (stage.power_fn.M, stage.power_fn.KP) == (
@@ -348,6 +352,73 @@ def test_trim_counter_follows_the_channel_slice(cuda):
         assert trimmed == (name == "cfgjson"), (name, channels)
         assert (k1, fft) == ((0, 3) if algorithm == "fft" else (3, 0)), (
             name, channels)
+
+
+# --- the Bartlett kernel (csrc/bartlett_power.cu) ---------------------------
+
+FFT_GATE = dict(rtol=2e-4, atol=1e-6)           # tests/test_torch_freq.py
+# the widest gap of a map from the complex128 run over its largest value
+# (portbench's map_gap); the eager complex64 route reads at most 9.3e-7
+BARTLETT_GAP = 1e-5
+# a strict subset of the frame's channels, in a band above bin 0
+# (tests/test_torch_fft_route.py)
+FFT_SMALL = Config.tiny().replace(
+    n_microphones=32, array_slots=2, fft_mic_model="fft",
+    camera_offset=0.11, freq_band_low=500.0, freq_band_high=18000.0)
+
+
+def _bartlett_tables(name, dev):
+    """``(cfg, tables, bin_weights)``: webfft's tables, the small ones, or
+    webfft's laid out over four bin shards (rfft bins of their own, the
+    repeated last bin masked by the weights)."""
+    from zybo_rt_sampler_image_detection_torch.ops import freq
+    from zybo_rt_sampler_image_detection_torch.parallel import mesh as pm
+
+    cfg = FFT_SMALL if name == "small" else _bench_config("webfft")
+    t = freq.make_freq_tables(cfg, device=dev)
+    if name != "mesh":
+        return cfg, t, None
+    stp, w = pm.shard_freq_tables(t, pm.make_mesh(1, 4, devices=[dev] * 4))
+    return cfg, stp.tables, w
+
+
+def _gap(got, ref):
+    err = (got.double() - ref).abs().reshape(len(ref), -1).amax(1)
+    return (err / ref.reshape(len(ref), -1).amax(1)).max().item()
+
+
+@pytest.mark.parametrize("B", [1, 5, 16, 37])
+@pytest.mark.parametrize("name", ["webfft", "small", "mesh"])
+def test_bartlett_kernel_matches_eager_and_complex128(cuda, name, B,
+                                                      monkeypatch):
+    """``fft_steered_power`` through the kernel against the eager
+    complex64 route and the complex128 run, on the same frames: the FFT
+    gate and the gap limit; two calls bitwise equal, one launch each; a
+    lone frame (the live stage's call) at the FFT gate, and bit for bit
+    the batch of one."""
+    from zybo_rt_sampler_image_detection_torch.ops import freq
+
+    cfg, t, w = _bartlett_tables(name, cuda)
+    x = torch.from_numpy(_frames(cfg, B, seed=B)).to(cuda)
+    before = bk.bartlett_power.launches
+    got = freq.fft_steered_power(x, t, w)
+    again = freq.fft_steered_power(x, t, w)
+    one = freq.fft_steered_power(x[-1], t, w)
+    torch.cuda.synchronize()
+    assert bk.bartlett_power.launches == before + 3
+    assert torch.equal(got, again)
+    ref64 = freq.fft_steered_power(x.double(), t, w)
+    monkeypatch.setattr(freq, "takes_bartlett_kernel", lambda *a: False)
+    eager = freq.fft_steered_power(x, t, w)
+    assert bk.bartlett_power.launches == before + 3
+    np.testing.assert_allclose(got.cpu().numpy(), eager.cpu().numpy(),
+                               **FFT_GATE)
+    assert _gap(got, ref64) <= BARTLETT_GAP, (_gap(got, ref64),
+                                              _gap(eager, ref64))
+    assert one.shape == (t.res_x, t.res_y)
+    assert B > 1 or torch.equal(one, got[0])
+    np.testing.assert_allclose(one.cpu().numpy(), eager[-1].cpu().numpy(),
+                               **FFT_GATE)
 
 
 # --- fused time-domain power (csrc/time_power.cu) -------------------------

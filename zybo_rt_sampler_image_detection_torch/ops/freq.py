@@ -19,15 +19,17 @@ the rfft as a DFT-by-matmul and inverts through unrolled real embeddings;
 here every quantity is one complex tensor (complex64 for float32 frames,
 complex128 for float64 frames), the transforms are ``torch.fft.rfft`` /
 ``irfft``, and the factorizations are batched ``torch.linalg.cholesky_ex``.
-Nothing on this path is a hand-written kernel: it is batched complex
-matmuls, FFTs and Cholesky factorizations, and the scans of the JAX
-package are Python loops over those ops.
+The Bartlett contraction of float32 frames on the card at the
+``highest`` and ``high`` rungs is one hand-written kernel
+(:mod:`.bartlett_kernel`, after cuFFT's rfft); everything else here is
+batched complex matmuls, FFTs and Cholesky factorizations, and the scans
+of the JAX package are Python loops over those ops.
 
 Steering: the Bartlett sum is ``sum_m S_m P_m`` with ``P = phase``, so the
 Capon steering vector is ``a = conj(phase)``.
 
-Precision: every matmul runs at true FP32 (TF32 off,
-:func:`.beamform.set_fp32_matmul`) or in complex128, except the
+Precision: every matmul and the Bartlett kernel run at true FP32 (TF32
+off, :func:`.beamform.set_fp32_matmul`) or in complex128, except the
 Bartlett contraction of tables made at the ``default`` rung
 (:attr:`FreqTables.precision`, from ``Config.matmul_precision``), which
 takes bf16 operands.  The ``grid_precision`` argument of the grid
@@ -46,7 +48,7 @@ import torch
 
 from ..config import Config
 from ..utils.profiling import annotate
-from . import geometry
+from . import bartlett_kernel, geometry
 from .beamform import resolve_device, set_fp32_matmul
 
 _GRID_PRECISIONS = ("highest", "high", "default")
@@ -80,6 +82,26 @@ class FreqTables:
     @property
     def n_mics(self) -> int:
         return self.phase.shape[1]
+
+    @functools.cached_property
+    def phase_tiles(self) -> torch.Tensor:
+        """(NC, F, M, DC) complex64 ``phase`` in the Bartlett kernel's
+        tile order, zero past D (:func:`.bartlett_kernel.make_phase_tiles`).
+        Made with the card's tables at the ``highest`` and ``high`` rungs
+        (:func:`make_freq_tables`), else at the first kernel call."""
+        return bartlett_kernel.make_phase_tiles(self.phase)
+
+    @functools.cached_property
+    def kernel_indices(self) -> tuple:
+        """The Bartlett kernel's ``(adaptive, bins, extent)``: int32
+        channel rows and rfft bins of the steering rows, and the frame
+        rows and rfft bins they reach, ``(adaptive.max() + 1, bins.max() +
+        1)``."""
+        bins = (torch.arange(self.lo, self.hi, device=self.device)
+                if self.bins is None else self.bins)
+        return (self.adaptive.to(torch.int32).contiguous(),
+                bins.to(torch.int32).contiguous(),
+                (int(self.adaptive.max()) + 1, int(bins.max()) + 1))
 
     @functools.cached_property
     def phase_bf16(self) -> torch.Tensor:
@@ -130,11 +152,14 @@ def make_freq_tables(cfg: Config, freq_low: Optional[float] = None,
     else:
         active, _ = geometry.active_microphones(cfg)
     assert len(active) == M, (len(active), M)
-    return FreqTables(
+    t = FreqTables(
         phase=torch.from_numpy(phase.reshape(F, M, X * Y)).to(dev),
         adaptive=torch.from_numpy(np.asarray(active, np.int64)).to(dev),
         lo=lo, hi=hi, res_x=X, res_y=Y, n_samples=cfg.n_samples,
         precision=cfg.matmul_precision)
+    if takes_bartlett_kernel(torch.float32, dev, t.precision):
+        t.phase_tiles, t.kernel_indices     # built with the tables
+    return t
 
 
 def _signals(signals, t: FreqTables) -> torch.Tensor:
@@ -191,6 +216,16 @@ def _per_bin_power_bf16(S: torch.Tensor, t: FreqTables) -> torch.Tensor:
     return Y[..., :D].square() + Y[..., D:].square()
 
 
+def takes_bartlett_kernel(dtype: torch.dtype, device, precision: str
+                          ) -> bool:
+    """Whether the Bartlett contraction runs the hand-written kernel:
+    float32 frames on the card at the ``highest`` or ``high`` rung.  CPU
+    tensors run the eager code, float64 frames contract in complex128,
+    and the ``default`` rung keeps its bf16 operands."""
+    return (torch.device(device).type == "cuda" and dtype == torch.float32
+            and precision in ("highest", "high"))
+
+
 def fft_steered_power(signals, t: FreqTables,
                       bin_weights: Optional[torch.Tensor] = None
                       ) -> torch.Tensor:
@@ -202,14 +237,21 @@ def fft_steered_power(signals, t: FreqTables,
     ``bin_weights`` (F,) scales each bin's contribution to the sum (the
     JAX package's sharded path masks the bins that pad F with it).
 
-    Float32 frames contract in complex64 at true FP32, or with bf16
-    operands where ``t.precision`` is ``"default"``; float64 frames in
-    complex128.  Spans: ``power.fft_spectra`` (the channel gather, the
-    rfft and the band) and ``power.fft_contract`` (the contraction,
-    ``|.|^2`` and the sum over bins); ``fft_steered_power.launches``
-    counts the calls.
+    Float32 frames on the card at the ``highest`` and ``high`` rungs take
+    cuFFT's rfft and the Bartlett kernel (:func:`takes_bartlett_kernel`,
+    :func:`.bartlett_kernel.bartlett_power`), which reads the rfft
+    through the channel rows and bins; elsewhere float32 frames contract
+    in complex64 at true FP32, or with bf16 operands where
+    ``t.precision`` is ``"default"``, and float64 frames in complex128.
+    Spans: ``power.fft_spectra`` (the rfft; on the eager routes also the
+    channel gather and the band) and ``power.fft_contract`` (the
+    contraction, ``|.|^2`` and the sum over bins);
+    ``fft_steered_power.launches`` counts the calls.
     """
     fft_steered_power.launches += 1
+    signals = _signals(signals, t)
+    if takes_bartlett_kernel(signals.dtype, signals.device, t.precision):
+        return _kernel_steered_power(signals, t, bin_weights)
     set_fp32_matmul()
     with annotate("power.fft_spectra"):
         S, squeeze = _band_spectra(signals, t)                  # (F, B, M)
@@ -228,6 +270,28 @@ def fft_steered_power(signals, t: FreqTables,
 
 
 fft_steered_power.launches = 0
+
+
+def _kernel_steered_power(signals: torch.Tensor, t: FreqTables,
+                          bin_weights) -> torch.Tensor:
+    """:func:`fft_steered_power` through the Bartlett kernel: the rfft of
+    the whole batch, read by the kernel through the channel rows and the
+    bins (no gathered or band-sliced copy).  Frames must be
+    ``t.n_samples`` long: the bins are those of that length."""
+    if signals.shape[-1] != t.n_samples:
+        raise ValueError(f"frames of {signals.shape[-1]} samples; the "
+                         f"tables are for {t.n_samples}")
+    squeeze = signals.ndim == 2
+    with annotate("power.fft_spectra"):
+        spec = torch.fft.rfft(signals[None] if squeeze else signals, dim=-1)
+    with annotate("power.fft_contract"):
+        adaptive, bins, extent = t.kernel_indices
+        w = (None if bin_weights is None else torch.as_tensor(
+            bin_weights, device=t.device, dtype=torch.float32).contiguous())
+        power = bartlett_kernel.bartlett_power(
+            spec, t.phase_tiles, adaptive, bins, w, D=t.res_x * t.res_y,
+            extent=extent).reshape(-1, t.res_x, t.res_y)
+    return power[0] if squeeze else power
 
 
 def normalize_heatmap(power, threshold: float = 0.2) -> torch.Tensor:

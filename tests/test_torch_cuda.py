@@ -958,3 +958,29 @@ def test_spans_off_under_a_cuda_only_profile(cuda):
         torch.cuda.synchronize()
     rep = profiling.report()
     assert set(rep) == {"cpu.too"} and rep["cpu.too"]["n"] == 1
+
+
+def test_invert_hermitian_on_the_card_solves_the_factor(cuda):
+    """On the card the refresh's inverse is a triangular solve against
+    the identity and one product (``freq._inverse_from_factor``): at the
+    MVDR cell's shape (127 bins of 192 mics, complex64) it is as close to
+    the complex128 inverse of the same factor as ``torch.cholesky_inverse``
+    (MAGMA's batched potrs on the card) is."""
+    from zybo_rt_sampler_image_detection_torch.ops import freq
+
+    g = torch.Generator(device="cuda").manual_seed(23)
+    X = torch.randn((127, 192, 40), dtype=torch.complex64, device=cuda,
+                    generator=g)
+    R = X @ X.mH
+    R = R + (1e-3 * R.diagonal(dim1=-2, dim2=-1).real.sum(-1) / 192)[
+        :, None, None] * torch.eye(192, device=cuda)
+    P = freq.invert_hermitian(R)
+    L, _ = torch.linalg.cholesky_ex(R)
+    torch.testing.assert_close(P, freq._inverse_from_factor(L), rtol=0,
+                               atol=0)
+    truth = torch.cholesky_inverse(L.cpu().to(torch.complex128))
+    scale = truth.abs().max()
+    err = (P.cpu().to(torch.complex128) - truth).abs().max() / scale
+    potrs = torch.cholesky_inverse(L).cpu().to(torch.complex128)
+    err_potrs = (potrs - truth).abs().max() / scale
+    assert err < max(4 * err_potrs, 1e-5), (err, err_potrs)

@@ -261,12 +261,20 @@ def make_mvdr_stream(cfg: Config, kind: str = "maps", alpha: float = 0.9,
       weights (one host->device transfer serves both).
 
     Channel-sliced / f16 batches are padded back to the full mic axis
-    inside ``fn``.  The host counters are Python ints and nothing in a
-    call reads the device back, so the stages keep two batches in
-    flight.  Returns ``fn`` with ``fn.reset()``, ``fn.tables``,
-    ``fn.state``, ``fn.tick(k)`` and ``fn.alpha``.  On the card unless
-    ``device="cpu"``.  Ref: ``api.c:576-581`` (live steer),
-    ``api.c:491-543`` (miso_loop).
+    inside ``fn``.  The products run at ``cfg.matmul_precision``'s rung
+    (the tables', ``freq._products``).  The host counters are Python ints
+    and nothing in a call reads the device back, so the stages keep two
+    batches in flight.  Returns ``fn`` with ``fn.reset()``,
+    ``fn.tables``, ``fn.state``, ``fn.tick(k)``, ``fn.alpha`` and
+    ``fn.counts``.  On the card unless ``device="cpu"``.  Ref:
+    ``api.c:576-581`` (live steer), ``api.c:491-543`` (miso_loop).
+
+    Spans: ``power.mvdr_scan`` (a batch's ``freq.mvdr_maps_scan``, or the
+    live frame's ``freq.update_precision``), ``power.mvdr_d0`` (a full
+    quadratic form) and ``power.mvdr_refresh`` (an exact refresh).
+    ``fn.counts``, over the stream's life (the up-front programs of
+    ``reset`` left out): ``refreshes``, ``quad_forms`` (full quadratic
+    forms measured) and ``frames`` (frames absorbed).
     """
     if kind not in ("maps", "beams", "maps_beams"):
         raise ValueError(f"unknown mvdr stream kind {kind!r}")
@@ -274,22 +282,40 @@ def make_mvdr_stream(cfg: Config, kind: str = "maps", alpha: float = 0.9,
     n_full = cfg.n_microphones
     state = {"p": freq.init_precision(ft), "n": 0, "r": 0, "dq": None,
              "dqc": 0}
+    counts = {"refreshes": 0, "quad_forms": 0, "frames": 0}
     refresh_every = freq.refresh_interval(alpha)
     carry_max = freq.d0_carry_interval(alpha)
 
+    def _quad_form(measure):
+        with annotate("power.mvdr_d0"):
+            out = measure(state["p"], ft)
+        counts["quad_forms"] += 1
+        return out
+
     def _carried_dq():
         if state["dq"] is None or state["dqc"] >= carry_max:
-            state["dq"] = freq.mvdr_d0(state["p"], ft)
+            state["dq"] = _quad_form(freq.mvdr_d0)
             state["dqc"] = 0
         return state["dq"]
 
     def _tick(k: int):
         state["n"] += k
         state["dqc"] += k
+        counts["frames"] += k
         if state["n"] - state["r"] >= refresh_every:
-            state["p"] = freq.refresh_precision(state["p"], ft)
+            with annotate("power.mvdr_refresh"):
+                state["p"] = freq.refresh_precision(state["p"], ft)
+            counts["refreshes"] += 1
             state["dq"] = None         # re-measure from the refreshed P
             state["r"] = state["n"]
+
+    def _scan(frames):
+        frames = _pad_full(frames, n_full)
+        d0 = _carried_dq()
+        with annotate("power.mvdr_scan"):
+            maps, state["p"], state["dq"] = freq.mvdr_maps_scan(
+                state["p"], frames, ft, alpha=alpha, d0=d0, return_d=True)
+        return frames, maps
 
     def _frames(frames):
         return torch.as_tensor(frames, device=ft.device)
@@ -303,10 +329,7 @@ def make_mvdr_stream(cfg: Config, kind: str = "maps", alpha: float = 0.9,
             return beams
     elif kind == "maps_beams":
         def fn(frames, direction):
-            frames = _pad_full(_frames(frames), n_full)
-            maps, state["p"], state["dq"] = freq.mvdr_maps_scan(
-                state["p"], frames, ft, alpha=alpha, d0=_carried_dq(),
-                return_d=True)
+            frames, maps = _scan(_frames(frames))
             beams = freq.mvdr_beam_precision(state["p"], ft, frames,
                                              direction)
             _tick(frames.shape[0])
@@ -315,15 +338,14 @@ def make_mvdr_stream(cfg: Config, kind: str = "maps", alpha: float = 0.9,
         def fn(frames):
             frames = _frames(frames)
             if frames.ndim == 3:
-                maps, state["p"], state["dq"] = freq.mvdr_maps_scan(
-                    state["p"], _pad_full(frames, n_full), ft, alpha=alpha,
-                    d0=_carried_dq(), return_d=True)
+                _, maps = _scan(frames)
                 _tick(frames.shape[0])
             else:
-                state["p"] = freq.update_precision(state["p"], frames, ft,
-                                                   alpha=alpha)
+                with annotate("power.mvdr_scan"):
+                    state["p"] = freq.update_precision(state["p"], frames,
+                                                       ft, alpha=alpha)
                 state["dq"] = None  # P moved outside the carried recursion
-                maps = freq.mvdr_power_precision(state["p"], ft)
+                maps = _quad_form(freq.mvdr_power_precision)
                 _tick(1)
             return maps
 
@@ -345,6 +367,7 @@ def make_mvdr_stream(cfg: Config, kind: str = "maps", alpha: float = 0.9,
     # then tick(k)
     fn.tick = _tick
     fn.alpha = alpha
+    fn.counts = counts
     return fn
 
 
@@ -1471,4 +1494,8 @@ class Pipeline:
                 counts["sink_underflow_samples"] = sink.underflow_samples
             if counts:
                 rep.setdefault(s.name, {}).update(counts)
+        # the mvdr route's stream, once a heatmap stage has built it
+        stream_counts = getattr(self._power_fn, "counts", None)
+        if self._power_backend == "mvdr" and stream_counts is not None:
+            rep["mvdr"] = dict(stream_counts)
         return rep

@@ -29,16 +29,19 @@ Steering: the Bartlett sum is ``sum_m S_m P_m`` with ``P = phase``, so the
 Capon steering vector is ``a = conj(phase)``.
 
 Precision: every matmul and the Bartlett kernel run at true FP32 (TF32
-off, :func:`.beamform.set_fp32_matmul`) or in complex128, except the
-Bartlett contraction of tables made at the ``default`` rung
-(:attr:`FreqTables.precision`, from ``Config.matmul_precision``), which
-takes bf16 operands.  The ``grid_precision`` argument of the grid
-evaluations keeps the JAX signature; its three rungs ("highest", "high",
-"default") all run at FP32, which lies inside each rung's error class.
+off, :func:`.beamform.set_fp32_matmul`) or in complex128, except with
+tables made at the ``default`` rung (:attr:`FreqTables.precision`, from
+``Config.matmul_precision``): there the Bartlett contraction takes bf16
+operands, and the MVDR functions let cuBLAS take TF32 operands in their
+complex products (:func:`_products`).  The ``grid_precision`` argument
+of the grid evaluations keeps the JAX signature; its three rungs
+("highest", "high", "default") all run at FP32, which lies inside each
+rung's error class.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 from typing import Optional
@@ -340,6 +343,28 @@ def peak_detection(power_f, t: FreqTables, threshold_upper: float = 0.8,
 # MVDR (Capon)
 # ---------------------------------------------------------------------------
 
+@contextlib.contextmanager
+def _products(t: FreqTables):
+    """The rung of the MVDR functions' products, from ``t.precision``:
+    true FP32 at ``highest`` and ``high`` (:func:`.beamform.
+    set_fp32_matmul`, left set, as everywhere in the port); at
+    ``default`` cuBLAS may take TF32 operands (``allow_tf32``) for the
+    block, and the process's setting is restored after it.  The flag is
+    the process's: a product another thread runs meanwhile takes the
+    same rung.  Complex128 products and CPU tensors have no TF32."""
+    if t.precision != "default":
+        set_fp32_matmul()
+        yield
+        return
+    matmul = torch.backends.cuda.matmul
+    before = matmul.allow_tf32
+    matmul.allow_tf32 = True
+    try:
+        yield
+    finally:
+        matmul.allow_tf32 = before
+
+
 @dataclasses.dataclass(frozen=True)
 class CovarianceState:
     """Streaming per-bin spatial covariance R[f] (EMA over frames)."""
@@ -372,15 +397,15 @@ def update_covariance(state: CovarianceState, signals, t: FreqTables,
                       alpha: float = 0.9) -> CovarianceState:
     """EMA update ``R <- alpha R + (1-alpha) mean_b(S S^H)`` per bin; the
     first update replaces the initial identity."""
-    set_fp32_matmul()
-    signals = _signals(signals, t)
-    if signals.ndim == 2:
-        signals = signals[None]
-    S = _frame_fft(signals, t)                                  # (B, F, M)
-    o = _outer_sum(S) / S.shape[0]
-    R = o if state.count == 0 else \
-        alpha * state.R.to(o.dtype) + (1 - alpha) * o
-    return CovarianceState(R=R, count=state.count + 1)
+    with _products(t):
+        signals = _signals(signals, t)
+        if signals.ndim == 2:
+            signals = signals[None]
+        S = _frame_fft(signals, t)                                  # (B, F, M)
+        o = _outer_sum(S) / S.shape[0]
+        R = o if state.count == 0 else \
+            alpha * state.R.to(o.dtype) + (1 - alpha) * o
+        return CovarianceState(R=R, count=state.count + 1)
 
 
 def _loaded(state: CovarianceState, diagonal_loading: float) -> torch.Tensor:
@@ -410,14 +435,30 @@ def _solve_hermitian(R: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 def invert_hermitian(R: torch.Tensor) -> torch.Tensor:
     """Invert batched Hermitian-PD ``R`` (F, M, M): Cholesky, then the
-    inverse from the factor (LAPACK ``potri``).  Takes the place of the
-    JAX package's real-embedding inversion and its unrolled complex
-    potri, which exist because the TPU has no complex dtype and a
-    serial-loop Cholesky.  No Hermitian re-projection of the result, as
-    in the JAX package: the factorization's structure errors cancel in
-    ``R @ P``."""
+    inverse from the factor: LAPACK's ``potri`` on the CPU, and on the
+    card :func:`_inverse_from_factor`.  Takes the place of the JAX
+    package's real-embedding inversion and its unrolled complex potri,
+    which exist because the TPU has no complex dtype and a serial-loop
+    Cholesky.  No Hermitian re-projection of the result, as in the JAX
+    package: the factorization's structure errors cancel in ``R @ P``."""
     L, _ = torch.linalg.cholesky_ex(R)
+    if L.device.type == "cuda":
+        return _inverse_from_factor(L)
     return torch.cholesky_inverse(L)
+
+
+def _inverse_from_factor(L: torch.Tensor) -> torch.Tensor:
+    """``(L L^H)^-1 = G^H G`` with ``G = L^-1``: one batched triangular
+    solve against the identity and one batched product (cuBLAS).  On the
+    card ``torch.cholesky_inverse`` of a batch takes MAGMA's batched
+    potrs, which allocates and frees device memory and waits on the
+    device at every call, and whose kernels ran 20-35% slower in some
+    processes than in others at 127 bins of 192 mics: 2.9-15 ms a call
+    against 0.51 ms here, to the same error against complex128 (1.2e-6
+    to 1.6e-6 of the scale, H100)."""
+    eye = torch.eye(L.shape[-1], dtype=L.dtype, device=L.device)
+    G = torch.linalg.solve_triangular(L, eye, upper=False)
+    return torch.matmul(G.mH, G)
 
 
 def _quad_form(P: torch.Tensor, t: FreqTables) -> torch.Tensor:
@@ -444,10 +485,10 @@ def mvdr_power(state: CovarianceState, t: FreqTables,
     direction.
     """
     _check_grid(grid_precision)
-    set_fp32_matmul()
-    P = invert_hermitian(_loaded(state, diagonal_loading))
-    denom = _quad_form(P, t).clamp_min(1e-12)
-    return (1.0 / denom).sum(dim=0).reshape(t.res_x, t.res_y)
+    with _products(t):
+        P = invert_hermitian(_loaded(state, diagonal_loading))
+        denom = _quad_form(P, t).clamp_min(1e-12)
+        return (1.0 / denom).sum(dim=0).reshape(t.res_x, t.res_y)
 
 
 # ---------------------------------------------------------------------------
@@ -535,26 +576,26 @@ def update_precision(state: PrecisionState, signals, t: FreqTables,
     ``s^H P s`` is real because P is Hermitian.  Cost: one matvec and one
     outer product per bin and frame.
     """
-    set_fp32_matmul()
-    signals = _signals(signals, t)
-    if signals.ndim == 2:
-        signals = signals[None]
-    S = _frame_fft(signals, t)                                  # (B, F, M)
-    beta = (1.0 - alpha) / alpha
-    P = state.P.to(S.dtype)
-    for s in S:                                                 # (F, M)
-        u = torch.matmul(P, s[:, :, None])[..., 0]              # P s
-        g = torch.linalg.vecdot(s, u).real                      # s^H P s
-        scale = beta / (1.0 + beta * g)
-        # P <- (P - scale u u^H) / alpha
-        P = torch.baddbmm(P, (scale[:, None] * u)[:, :, None],
-                          u.conj()[:, None, :], beta=1.0 / alpha,
-                          alpha=-1.0 / alpha)
-    # the co-tracked covariance uses the SAME per-frame discounting as the
-    # precision loop (a batch-mean EMA step here would make the periodic
-    # refresh snap P onto a different estimate for B > 1)
-    return PrecisionState(P=P, cov=_cov_rank_update(state.cov, S, alpha),
-                          load=state.load)
+    with _products(t):
+        signals = _signals(signals, t)
+        if signals.ndim == 2:
+            signals = signals[None]
+        S = _frame_fft(signals, t)                                  # (B, F, M)
+        beta = (1.0 - alpha) / alpha
+        P = state.P.to(S.dtype)
+        for s in S:                                                 # (F, M)
+            u = torch.matmul(P, s[:, :, None])[..., 0]              # P s
+            g = torch.linalg.vecdot(s, u).real                      # s^H P s
+            scale = beta / (1.0 + beta * g)
+            # P <- (P - scale u u^H) / alpha
+            P = torch.baddbmm(P, (scale[:, None] * u)[:, :, None],
+                              u.conj()[:, None, :], beta=1.0 / alpha,
+                              alpha=-1.0 / alpha)
+        # the co-tracked covariance uses the SAME per-frame discounting as the
+        # precision loop (a batch-mean EMA step here would make the periodic
+        # refresh snap P onto a different estimate for B > 1)
+        return PrecisionState(P=P, cov=_cov_rank_update(state.cov, S, alpha),
+                              load=state.load)
 
 
 def update_precision_block(state: PrecisionState, signals, t: FreqTables,
@@ -575,16 +616,16 @@ def update_precision_block(state: PrecisionState, signals, t: FreqTables,
     the covariance co-estimate uses the same U (with the sequential
     recursion's first-ever-frame replacement reproduced exactly).
     """
-    set_fp32_matmul()
-    signals = _signals(signals, t)
-    if signals.ndim == 2:
-        signals = signals[None]
-    S = _frame_fft(signals, t)
-    P = state.P.to(S.dtype)
-    Ps, c, L = _capacitance(P, S, alpha)
-    return PrecisionState(P=_advance(P, Ps, c, L, alpha),
-                          cov=_cov_rank_update(state.cov, S, alpha),
-                          load=state.load)
+    with _products(t):
+        signals = _signals(signals, t)
+        if signals.ndim == 2:
+            signals = signals[None]
+        S = _frame_fft(signals, t)
+        P = state.P.to(S.dtype)
+        Ps, c, L = _capacitance(P, S, alpha)
+        return PrecisionState(P=_advance(P, Ps, c, L, alpha),
+                              cov=_cov_rank_update(state.cov, S, alpha),
+                              load=state.load)
 
 
 def _capacitance(P: torch.Tensor, S: torch.Tensor, alpha: float):
@@ -627,8 +668,8 @@ def mvdr_d0(state: PrecisionState, t: FreqTables,
     the returned ``d`` between calls (``d0=``/``return_d=``) and only
     re-evaluate here after :func:`refresh_precision`."""
     _check_grid(grid_precision)
-    set_fp32_matmul()
-    return _quad_form(state.P, t)
+    with _products(t):
+        return _quad_form(state.P, t)
 
 
 def mvdr_maps_scan(state: PrecisionState, signals, t: FreqTables,
@@ -679,43 +720,44 @@ def mvdr_maps_scan(state: PrecisionState, signals, t: FreqTables,
     ``(maps, new_state, d)``.  Nothing is read back to the host.
     """
     _check_grid(grid_precision)
-    set_fp32_matmul()
-    signals = _signals(signals, t)
-    if signals.ndim == 2:
-        signals = signals[None]
-    B = signals.shape[0]
-    S = _frame_fft(signals, t)                                  # (B, F, M)
-    ph = _phase(t, S.dtype)                                     # (F, M, D)
-    if bin_weights is not None:
-        bin_weights = torch.as_tensor(bin_weights, device=t.device,
-                                      dtype=S.real.dtype)
-    st = state
-    # d_0 = a^H P_0 a (the one full quadratic form), unless carried in
-    d = mvdr_d0(st, t, grid_precision) if d0 is None else d0
-    maps = []
-    for c0 in range(0, B, CHUNK):
-        S_c = S[c0:c0 + CHUNK]
-        P = st.P.to(S.dtype)
-        Ps, c, L = _capacitance(P, S_c, alpha)
-        # Y_0 = a^H P_0 S = ph^T Ps (F, D, Bc); z = diag(c) Y_0^H
-        Y0 = torch.matmul(ph.transpose(1, 2), Ps)
-        V = torch.linalg.solve_triangular(L, c[:, None] * Y0.mH,
-                                          upper=False)          # (F, Bc, D)
-        q = torch.cumsum(V.real.square() + V.imag.square(), dim=1)
-        i = torch.arange(S_c.shape[0], dtype=S.real.dtype, device=S.device)
-        d_all = (d[:, None, :] - q) * (alpha ** -(i + 1.0))[:, None]
-        per_bin = 1.0 / d_all.clamp_min(1e-12)                  # (F, Bc, D)
+    with _products(t):
+        signals = _signals(signals, t)
+        if signals.ndim == 2:
+            signals = signals[None]
+        B = signals.shape[0]
+        S = _frame_fft(signals, t)                                  # (B, F, M)
+        ph = _phase(t, S.dtype)                                     # (F, M, D)
         if bin_weights is not None:
-            per_bin = per_bin * bin_weights[:, None, None]
-        maps.append(per_bin.sum(dim=0))                         # (Bc, D)
-        d = d_all[:, -1]
-        st = PrecisionState(P=_advance(P, Ps, c, L, alpha),
-                            cov=_cov_rank_update(st.cov, S_c, alpha),
-                            load=st.load)
-    maps = torch.cat(maps, dim=0).reshape(B, t.res_x, t.res_y)
-    if return_d:
-        return maps, st, d
-    return maps, st
+            bin_weights = torch.as_tensor(bin_weights, device=t.device,
+                                          dtype=S.real.dtype)
+        st = state
+        # d_0 = a^H P_0 a (the one full quadratic form), unless carried in
+        d = mvdr_d0(st, t, grid_precision) if d0 is None else d0
+        maps = []
+        for c0 in range(0, B, CHUNK):
+            S_c = S[c0:c0 + CHUNK]
+            P = st.P.to(S.dtype)
+            Ps, c, L = _capacitance(P, S_c, alpha)
+            # Y_0 = a^H P_0 S = ph^T Ps (F, D, Bc); z = diag(c) Y_0^H
+            Y0 = torch.matmul(ph.transpose(1, 2), Ps)
+            V = torch.linalg.solve_triangular(
+                L, c[:, None] * Y0.mH, upper=False)             # (F, Bc, D)
+            q = torch.cumsum(V.real.square() + V.imag.square(), dim=1)
+            i = torch.arange(S_c.shape[0], dtype=S.real.dtype,
+                             device=S.device)
+            d_all = (d[:, None, :] - q) * (alpha ** -(i + 1.0))[:, None]
+            per_bin = 1.0 / d_all.clamp_min(1e-12)              # (F, Bc, D)
+            if bin_weights is not None:
+                per_bin = per_bin * bin_weights[:, None, None]
+            maps.append(per_bin.sum(dim=0))                         # (Bc, D)
+            d = d_all[:, -1]
+            st = PrecisionState(P=_advance(P, Ps, c, L, alpha),
+                                cov=_cov_rank_update(st.cov, S_c, alpha),
+                                load=st.load)
+        maps = torch.cat(maps, dim=0).reshape(B, t.res_x, t.res_y)
+        if return_d:
+            return maps, st, d
+        return maps, st
 
 
 def refresh_interval(alpha: float = 0.9) -> int:
@@ -754,7 +796,8 @@ def refresh_precision(state: PrecisionState, t: FreqTables) -> PrecisionState:
     every :func:`refresh_interval` frames to bound f32 recursion drift:
     F batched M x M complex Cholesky factorizations and their inverses
     (:func:`invert_hermitian`)."""
-    P = invert_hermitian(_loaded(state.cov, state.load))
+    with _products(t):
+        P = invert_hermitian(_loaded(state.cov, state.load))
     return PrecisionState(P=P, cov=state.cov, load=state.load)
 
 
@@ -806,17 +849,17 @@ def mvdr_beam(state: CovarianceState, t: FreqTables, signals, direction,
               diagonal_loading: float = 1e-3) -> torch.Tensor:
     """MVDR-weighted single-direction beam in the time domain (B, N):
     ``w_f = R^{-1} a / (a^H R^{-1} a)`` per bin, by a Cholesky solve."""
-    set_fp32_matmul()
-    signals = _signals(signals, t)
-    squeeze = signals.ndim == 2
-    if squeeze:
-        signals = signals[None]
-    R = _loaded(state, diagonal_loading)
-    a = _steer(t, direction, R.dtype)
-    x = _solve_hermitian(R, a[:, :, None])[..., 0]
-    denom = torch.linalg.vecdot(a, x).real.clamp_min(1e-12)
-    beam = _apply_beam_weights(signals, t, x / denom[:, None])
-    return beam[0] if squeeze else beam
+    with _products(t):
+        signals = _signals(signals, t)
+        squeeze = signals.ndim == 2
+        if squeeze:
+            signals = signals[None]
+        R = _loaded(state, diagonal_loading)
+        a = _steer(t, direction, R.dtype)
+        x = _solve_hermitian(R, a[:, :, None])[..., 0]
+        denom = torch.linalg.vecdot(a, x).real.clamp_min(1e-12)
+        beam = _apply_beam_weights(signals, t, x / denom[:, None])
+        return beam[0] if squeeze else beam
 
 
 def mvdr_beam_precision(state: PrecisionState, t: FreqTables, signals,
@@ -831,18 +874,18 @@ def mvdr_beam_precision(state: PrecisionState, t: FreqTables, signals,
     ``direction``: a flat grid index, an int or a 0-d integer tensor.
     Returns (B, N) (or (N,) for a single frame).
     """
-    set_fp32_matmul()
-    signals = _signals(signals, t)
-    squeeze = signals.ndim == 2
-    if squeeze:
-        signals = signals[None]
-    ctype = torch.complex128 if signals.dtype == torch.float64 \
-        else torch.complex64
-    a = _steer(t, direction, ctype)
-    x = torch.matmul(state.P.to(ctype), a[:, :, None])[..., 0]   # P a
-    denom = torch.linalg.vecdot(a, x).real.clamp_min(1e-12)
-    beam = _apply_beam_weights(signals, t, x / denom[:, None])
-    return beam[0] if squeeze else beam
+    with _products(t):
+        signals = _signals(signals, t)
+        squeeze = signals.ndim == 2
+        if squeeze:
+            signals = signals[None]
+        ctype = torch.complex128 if signals.dtype == torch.float64 \
+            else torch.complex64
+        a = _steer(t, direction, ctype)
+        x = torch.matmul(state.P.to(ctype), a[:, :, None])[..., 0]   # P a
+        denom = torch.linalg.vecdot(a, x).real.clamp_min(1e-12)
+        beam = _apply_beam_weights(signals, t, x / denom[:, None])
+        return beam[0] if squeeze else beam
 
 
 def mvdr_listen_step(state: PrecisionState, signals, t: FreqTables,

@@ -61,7 +61,8 @@ Phases (any failure raises, so the exit code is non-zero):
    received frame's audio passes the same gate.  (c) 20 of those maps
    through ``viz.Front.multi_loop`` on an array display.
 8. FFT and MVDR (``ops.freq``; the Bartlett contraction is
-   ``csrc/bartlett_power.cu``, the rest plain torch): (a) the Bartlett
+   ``csrc/bartlett_power.cu``, the MVDR quadratic form
+   ``csrc/quad_form.cu``, the rest plain torch): (a) the Bartlett
    map of the golden reference frame at ``Config()`` (100-20000 Hz) and
    ``Config.fft_reference()`` against the complex128 run of the same
    function (rtol 2e-4 / atol 1e-6) and its distance to the golden rows;
@@ -72,10 +73,15 @@ Phases (any failure raises, so the exit code is non-zero):
    full-rate stage launches ``bartlett_power`` once a batch; (b) 20 batches of 16
    drifting-tone frames through ``make_mvdr_stream("maps")`` in complex64
    against the same stream in complex128 (every map finite, worst
-   direction within 0.05 on every frame); (c) the full-rate heatmap stage
+   direction within 0.05 on every frame); (b2) the quadratic form
+   kernel at the MVDR cell's shape and at ``Config()``'s 256 mics on a
+   streamed P, against the complex128 form, bitwise repeats, and its time
+   beside its bound, its plain version and the cuBLAS chain it replaced;
+   (c) the full-rate heatmap stage
    of ``Pipeline(cfg, "mvdr")``, which takes the route's stream as it is
    (K=16, 192 channels, 4 s at line rate; 0 skipped, 0
-   gaps), and the device ms of one batch's scan, of ``mvdr_d0`` and of
+   gaps; a kernel launch for each quadratic form), and the device ms of
+   one batch's scan, of ``mvdr_d0`` and of
    ``refresh_precision``, each with its bound; (d) the combined stage
    with ``beam="mvdr"`` (maps and beams from one state update; 0 skipped,
    0 gaps, 0 underruns, ``processed * 256`` samples, beams finite and
@@ -187,6 +193,7 @@ FD_SOURCE = f"{CSRC}/equiv_power_fd.cu"
 FD_REPLACES = f"{TPU_OPS}/equiv_kernel.py:198"
 TIME_SOURCE = f"{CSRC}/time_power.cu"
 BARTLETT_SOURCE = f"{CSRC}/bartlett_power.cu"   # replaces no TPU kernel
+QUAD_FORM_SOURCE = f"{CSRC}/quad_form.cu"       # replaces no TPU kernel
 # one kernel for K2 (:128), K3 (:212) and K4 (:363)
 TIME_REPLACES = [f"{TPU_OPS}/pallas_kernels.py:{n}" for n in (128, 212, 363)]
 # max cellwise relative error of the kernel against its plain version
@@ -384,7 +391,8 @@ def phase_card_and_build():
           f"device {torch.cuda.get_device_name(0)}")
     from zybo_rt_sampler_image_detection_torch.ops import _build
 
-    names = ("equiv_power", "time_power", "equiv_power_fd", "bartlett_power")
+    names = ("equiv_power", "time_power", "equiv_power_fd", "bartlett_power",
+             "quad_form")
     t0 = time.perf_counter()
     # one nvcc per source, started together
     with concurrent.futures.ThreadPoolExecutor(len(names)) as pool:
@@ -1487,11 +1495,24 @@ def phase_mvdr_oracle(card: str) -> dict:
                 frames=n)
 
 
+def _quad_form_work(F: int, M: int, D: int) -> tuple:
+    """``(operations, bytes)`` the MVDR quadratic form needs over P's
+    Hermitian half (``quad_form_kernel``): 8 real operations a complex
+    multiply-add of the 32-mic tile pairs I <= J (``(M^2 + sum_I m_I^2) /
+    2`` a bin and direction, m_I the mics of tile I), and P, the steering
+    tensor and d once."""
+    tiles = [min(32, M - i) for i in range(0, M, 32)]
+    macs = (M * M + sum(m * m for m in tiles)) // 2
+    return 8 * F * D * macs, _cplx_bytes(F, M, M) + _cplx_bytes(F, M, D) \
+        + 4 * F * D
+
+
 def _mvdr_bounds(ft, B: int, channels: int) -> dict:
     """Bounds of the MVDR steps at the stream's shape, from the work the
-    result needs.  ``mvdr_d0``: the (F, M, M) x (F, M, D) complex product
-    and the per-direction dot (8 F M^2 D + 8 F M D), reading P and the
-    steering tensor once.  One chunk of the scan: the projections P S,
+    result needs.  ``mvdr_d0``: the quadratic form over P's Hermitian
+    half (the tile pairs I <= J of 32 mics, :func:`_quad_form_work`:
+    about 4 F M (M + 32) D), reading P and the steering tensor once and
+    writing d.  One chunk of the scan: the projections P S,
     a^H P S and S^H P S, the coefficient product, the anchor's solve,
     the Woodbury advance and the covariance update (about 8 F (4 M^2 B + M
     D B + 2 D B^2 + 3 M B^2) in all), reading the frames, the steering
@@ -1500,14 +1521,93 @@ def _mvdr_bounds(ft, B: int, channels: int) -> dict:
     4 M^3 real operations), reading R and writing P."""
     F, M, D = ft.phase.shape
     N = ft.n_samples
-    d0 = bound(_cplx_bytes(F, M, M) + _cplx_bytes(F, M, D) + 4 * F * D,
-               8 * F * M * M * D + 8 * F * M * D)
+    flops, nbytes = _quad_form_work(F, M, D)
+    d0 = bound(nbytes, flops)
     scan = bound(4 * B * channels * N + _cplx_bytes(F, M, D)
                  + 4 * _cplx_bytes(F, M, M) + 2 * 4 * F * D + 4 * B * D,
                  8 * F * (4 * M * M * B + M * D * B + 2 * D * B * B
                           + 3 * M * B * B))
     refresh = bound(2 * _cplx_bytes(F, M, M), 4 * F * M ** 3)
     return dict(d0=d0, scan=scan, refresh=refresh)
+
+
+def phase_mvdr_quad_form(card: str) -> dict:
+    """(b2) The MVDR quadratic form kernel (``quad_form_kernel.
+    hermitian_quad_form``) at the MVDR cell's shape (127 bins, 192 mics,
+    1,824 directions) and at ``Config()``'s 256 mics, on the P of a stream
+    that took four batches of drifting-tone frames: against the
+    complex128 form of the same P (inside the FP32 bound of
+    ``tests/test_torch_quad_form.py``, which the cuBLAS chain meets too),
+    bitwise repeats, and its time in turns with its plain version (CUDA
+    events) and on the profiler's device clock, beside its bound (the
+    Hermitian half's operations at the FP32 peak, or P, the tensor and d
+    once, if larger) and the cuBLAS chain it replaced (``conj(P) phase``,
+    the elementwise product and the reduction: ``library_ms``).  Returns
+    the cell shape's figures."""
+    from zybo_rt_sampler_image_detection_torch.apps import pipeline
+    from zybo_rt_sampler_image_detection_torch.config import Config
+    from zybo_rt_sampler_image_detection_torch.ops import quad_form_kernel \
+        as qk
+
+    def chain(P, ph):
+        return torch.linalg.vecdot(ph, torch.matmul(P.conj(), ph),
+                                   dim=1).real
+
+    def excess(got, P, ph):
+        P64, ph64 = P.to(torch.complex128), ph.to(torch.complex128)
+        mag = (ph64.abs() * torch.matmul(P64.abs(), ph64.abs())).sum(1)
+        M = P.shape[-1]
+        return ((got.double() - chain(P64, ph64)).abs()
+                / (4 * (M + 64) * 2.0 ** -24 * mag)).max().item()
+
+    out = {}
+    for label, cfg in (("cell", Config(unused_mics=tuple(range(192, 256)))),
+                       ("Config()", Config())):
+        fn = pipeline.make_mvdr_stream(cfg, "maps")
+        fn.reset()
+        frames = torch.from_numpy(_drift_frames(cfg, 4 * FULLRATE_BATCH)
+                                  ).cuda()
+        for i in range(0, len(frames), FULLRATE_BATCH):
+            fn(frames[i:i + FULLRATE_BATCH])
+        P, ph, tiles = fn.state["p"].P, fn.tables.phase, fn.tables.phase_tiles
+        F, M, D = ph.shape
+        before = qk.hermitian_quad_form.launches
+
+        def kern():
+            return qk.hermitian_quad_form(P, tiles, D=D)
+
+        def plain():
+            return qk.hermitian_quad_form_plain(P, ph)
+
+        got = kern()
+        repeat = all(torch.equal(kern(), got) for _ in range(3))
+        k_exc, c_exc = excess(got, P, ph), excess(chain(P, ph), P, ph)
+        p_gap = ((plain() - got).abs().max() / got.abs().max()).item()
+        k_ms, p_ms = in_turns(plain, kern, 10)
+        lib = time_ms(lambda: chain(P, ph), 10)
+        dev = device_ms(kern, 10)
+        k_dev = sum(v for k, v in dev.items() if "quad_form" in k)
+        lib_dev = sum(device_ms(lambda: chain(P, ph), 10).values())
+        flops, nbytes = _quad_form_work(F, M, D)
+        bd = bound(nbytes, flops)
+        launches = qk.hermitian_quad_form.launches - before
+        print(f"[mvdr-quad-form] {label} F={F} M={M} D={D}: vs the "
+              f"complex128 form {k_exc:.3f} of its FP32 bound (cuBLAS "
+              f"chain {c_exc:.3f}), vs plain max rel {p_gap:.2e}, repeats "
+              f"bitwise {repeat}; kernel {k_ms:.4f} ms (device {k_dev:.4f},"
+              f" {bd['bound_ms'] / k_dev:.1%} of its bound), plain "
+              f"{p_ms:.4f} ms, cuBLAS chain {lib:.4f} ms (device "
+              f"{lib_dev:.4f}) | bound {bd['bound_ms']:.4f} ms "
+              f"({bd['bound_by']}: {flops / 1e9:.2f} GFLOP, "
+              f"{nbytes / 1e6:.1f} MB); launches {launches} [{card}]")
+        assert k_exc <= 1.0 and repeat, label
+        if label == "cell":
+            out = dict(ms=k_ms, device_ms=k_dev, plain_ms=p_ms,
+                       library_ms=lib, library_device_ms=lib_dev,
+                       excess=k_exc, **bd)
+        del fn, P, ph, tiles
+        torch.cuda.empty_cache()
+    return out
 
 
 def phase_mvdr_fullrate(card: str) -> dict:
@@ -1572,7 +1672,13 @@ def phase_mvdr_fullrate(card: str) -> dict:
         print(f"[mvdr-fullrate] {label}: {times[k]:.4f} ms on CUDA events "
               f"({walls[k]:.4f} ms wall a call) | bound "
               f"{bd['bound_ms']:.4f} ms ({bd['bound_by']}) [{card}]")
+    counts = p.report()["mvdr"]
+    print(f"[mvdr-fullrate] quadratic forms {counts['quad_forms']}, "
+          f"kernel launches {counts['quad_form_launches']} [{card}]")
+    assert counts["quad_form_launches"] == counts["quad_forms"] > 0, counts
     out = dict(processed=stage.processed, skipped=stage.skipped,
+               quad_forms=counts["quad_forms"],
+               quad_form_launches=counts["quad_form_launches"],
                rate=stage.processed / elapsed,
                latency_p50_ms=rep["latency_p50_ms"],
                latency_p95_ms=rep["latency_p95_ms"],
@@ -3210,7 +3316,8 @@ def main() -> int:
     t6 = time.perf_counter()
     main_b = phase_bartlett(card)
     phase_mvdr_oracle(card)
-    phase_mvdr_fullrate(card)
+    main_q = phase_mvdr_quad_form(card)
+    mvdr_full = phase_mvdr_fullrate(card)
     phase_mvdr_listen(card)
     phase_mvdr_live(card)
     t7 = time.perf_counter()
@@ -3264,6 +3371,11 @@ def main() -> int:
     kernels.append(dict(
         name="bartlett_power", route="cuda", source=BARTLETT_SOURCE,
         replaces=None, **main_b))
+    # launches: the full-rate MVDR stage's quadratic forms (8 c)
+    kernels.append(dict(
+        name="quad_form", route="cuda", source=QUAD_FORM_SOURCE,
+        replaces=None, launches=mvdr_full["quad_form_launches"],
+        quad_forms=mvdr_full["quad_forms"], **main_q))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

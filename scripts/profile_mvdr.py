@@ -12,9 +12,14 @@ its host wall time a call when each call is waited for, and the device's
 busy share of that wall time.  Then the refresh's inverse by four
 routes (``cholesky_inverse``, the port's; triangular solve + product;
 ``cholesky_solve`` of the identity; LU ``inv_ex``): time and error
-against the complex128 inverse.  Imports nothing of JAX.
+against the complex128 inverse.  With ``--quad-form``, only the
+quadratic form: its kernel (``quad_form_kernel.hermitian_quad_form``)
+against the complex128 form, timed beside its bound, its plain version
+and the cuBLAS chain it replaced, at the MVDR cell's shape and at
+``Config()`` (``chip_smoke.phase_mvdr_quad_form``).  Imports nothing of
+JAX.
 
-    python3 scripts/profile_mvdr.py [--iters 5]
+    python3 scripts/profile_mvdr.py [--iters 5] [--quad-form]
 """
 
 from __future__ import annotations
@@ -63,10 +68,19 @@ def syncs(fn) -> list:
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--iters", type=int, default=5)
+    ap.add_argument("--quad-form", action="store_true",
+                    help="time the quadratic form's kernel, plain version "
+                         "and cuBLAS chain only")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_mvdr: needs a CUDA GPU", file=sys.stderr)
         return 2
+    if args.quad_form:
+        import chip_smoke
+
+        torch.backends.cuda.matmul.allow_tf32 = False
+        chip_smoke.phase_mvdr_quad_form(chip_smoke.phase_card_and_build())
+        return 0
     import numpy as np
 
     from zybo_rt_sampler_image_detection_torch.apps import pipeline

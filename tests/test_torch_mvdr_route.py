@@ -172,7 +172,8 @@ def test_spans_and_counters_follow_the_cadence(tmp_path):
             nxt = stage._step(nxt)
         stage._drain()
     got = {k: fn.counts[k] - before[k] for k in before}
-    assert got == {"refreshes": 2, "quad_forms": 4, "frames": 8 * K}
+    assert got == {"refreshes": 2, "quad_forms": 4, "quad_form_launches": 0,
+                   "frames": 8 * K}
     assert p.report()["mvdr"] == fn.counts
     rep = profiling.report()
     assert rep["power.program"]["n"] == 8
@@ -190,7 +191,8 @@ def test_live_frame_counts_a_quadratic_form():
     fn.reset()
     for f in frames:
         fn(torch.from_numpy(f))
-    assert fn.counts == {"refreshes": 0, "quad_forms": 2, "frames": 2}
+    assert fn.counts == {"refreshes": 0, "quad_forms": 2,
+                         "quad_form_launches": 0, "frames": 2}
 
 
 def test_other_routes_report_no_stream():

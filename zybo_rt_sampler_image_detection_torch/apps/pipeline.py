@@ -46,7 +46,7 @@ import torch.nn.functional as F_
 
 from ..config import Config
 from ..ingest.receiver import Receiver
-from ..ops import beamform, freq
+from ..ops import beamform, freq, quad_form_kernel
 from ..utils import audio as audio_mod
 from ..utils.metrics import PipelineMetrics, history
 from ..utils.profiling import annotate
@@ -274,7 +274,11 @@ def make_mvdr_stream(cfg: Config, kind: str = "maps", alpha: float = 0.9,
     quadratic form) and ``power.mvdr_refresh`` (an exact refresh).
     ``fn.counts``, over the stream's life (the up-front programs of
     ``reset`` left out): ``refreshes``, ``quad_forms`` (full quadratic
-    forms measured) and ``frames`` (frames absorbed).
+    forms measured), ``quad_form_launches`` (the quadratic form kernel's
+    launches among them, ``quad_form_kernel.hermitian_quad_form.launches``
+    read around each form: every form at ``highest`` and ``high`` on the
+    card, none at ``default`` or on the CPU) and ``frames`` (frames
+    absorbed).
     """
     if kind not in ("maps", "beams", "maps_beams"):
         raise ValueError(f"unknown mvdr stream kind {kind!r}")
@@ -282,14 +286,18 @@ def make_mvdr_stream(cfg: Config, kind: str = "maps", alpha: float = 0.9,
     n_full = cfg.n_microphones
     state = {"p": freq.init_precision(ft), "n": 0, "r": 0, "dq": None,
              "dqc": 0}
-    counts = {"refreshes": 0, "quad_forms": 0, "frames": 0}
+    counts = {"refreshes": 0, "quad_forms": 0, "quad_form_launches": 0,
+              "frames": 0}
     refresh_every = freq.refresh_interval(alpha)
     carry_max = freq.d0_carry_interval(alpha)
 
     def _quad_form(measure):
+        kernel = quad_form_kernel.hermitian_quad_form
+        launches = kernel.launches
         with annotate("power.mvdr_d0"):
             out = measure(state["p"], ft)
         counts["quad_forms"] += 1
+        counts["quad_form_launches"] += kernel.launches - launches
         return out
 
     def _carried_dq():

@@ -21,14 +21,16 @@ complex128 for float64 frames), the transforms are ``torch.fft.rfft`` /
 ``irfft``, and the factorizations are batched ``torch.linalg.cholesky_ex``.
 The Bartlett contraction of float32 frames on the card at the
 ``highest`` and ``high`` rungs is one hand-written kernel
-(:mod:`.bartlett_kernel`, after cuFFT's rfft); everything else here is
-batched complex matmuls, FFTs and Cholesky factorizations, and the scans
-of the JAX package are Python loops over those ops.
+(:mod:`.bartlett_kernel`, after cuFFT's rfft), and so is the MVDR
+quadratic form of complex64 P there (:mod:`.quad_form_kernel`);
+everything else here is batched complex matmuls, FFTs and Cholesky
+factorizations, and the scans of the JAX package are Python loops over
+those ops.
 
 Steering: the Bartlett sum is ``sum_m S_m P_m`` with ``P = phase``, so the
 Capon steering vector is ``a = conj(phase)``.
 
-Precision: every matmul and the Bartlett kernel run at true FP32 (TF32
+Precision: every matmul and both kernels run at true FP32 (TF32
 off, :func:`.beamform.set_fp32_matmul`) or in complex128, except with
 tables made at the ``default`` rung (:attr:`FreqTables.precision`, from
 ``Config.matmul_precision``): there the Bartlett contraction takes bf16
@@ -51,7 +53,7 @@ import torch
 
 from ..config import Config
 from ..utils.profiling import annotate
-from . import bartlett_kernel, geometry
+from . import bartlett_kernel, geometry, quad_form_kernel
 from .beamform import resolve_device, set_fp32_matmul
 
 _GRID_PRECISIONS = ("highest", "high", "default")
@@ -73,9 +75,10 @@ class FreqTables:
     # out for a mesh (``parallel.mesh.shard_freq_tables``), whose padded
     # rows repeat the last bin; None: the bins ``[lo, hi)``
     bins: Optional[torch.Tensor] = None
-    # the Bartlett contraction's rung (``Config.matmul_precision``):
-    # "highest" and "high" contract in complex64 at true FP32, "default"
-    # with bf16 operands (:func:`fft_steered_power`)
+    # the rung of the Bartlett contraction and of the MVDR products
+    # (``Config.matmul_precision``): "highest" and "high" compute in
+    # complex64 at true FP32, "default" with bf16 operands
+    # (:func:`fft_steered_power`) or TF32 ones (:func:`_products`)
     precision: str = "highest"
 
     @property
@@ -89,8 +92,9 @@ class FreqTables:
     @functools.cached_property
     def phase_tiles(self) -> torch.Tensor:
         """(NC, F, M, DC) complex64 ``phase`` in the Bartlett kernel's
-        tile order, zero past D (:func:`.bartlett_kernel.make_phase_tiles`).
-        Made with the card's tables at the ``highest`` and ``high`` rungs
+        tile order, zero past D (:func:`.bartlett_kernel.make_phase_tiles`),
+        which the MVDR quadratic form kernel reads too.  Made with the
+        card's tables at the ``highest`` and ``high`` rungs
         (:func:`make_freq_tables`), else at the first kernel call."""
         return bartlett_kernel.make_phase_tiles(self.phase)
 
@@ -461,13 +465,29 @@ def _inverse_from_factor(L: torch.Tensor) -> torch.Tensor:
     return torch.matmul(G.mH, G)
 
 
+def takes_quad_form_kernel(dtype: torch.dtype, device, precision: str
+                           ) -> bool:
+    """Whether the quadratic form runs the hand-written kernel: complex64
+    P on the card at the ``highest`` or ``high`` rung.  CPU tensors and
+    complex128 run the eager code, and the ``default`` rung keeps cuBLAS
+    with TF32 operands (:func:`_products`)."""
+    return (torch.device(device).type == "cuda" and dtype == torch.complex64
+            and precision in ("highest", "high"))
+
+
 def _quad_form(P: torch.Tensor, t: FreqTables) -> torch.Tensor:
     """``d = Re(a^H P a)`` (F, D) for every direction, ``a = conj(phase)``.
 
-    With ``a = conj(ph)``, ``a^H P a = ph^T P conj(ph)``, which is real for
-    Hermitian P, so it equals its conjugate ``ph^H conj(P) ph``: one
+    Complex64 P on the card at the ``highest`` and ``high`` rungs takes
+    the kernel (:func:`takes_quad_form_kernel`, :func:`.quad_form_kernel.
+    hermitian_quad_form`: P's Hermitian half, the dot folded in).  The
+    eager code: with ``a = conj(ph)``, ``a^H P a = ph^T P conj(ph)``,
+    whose real part is that of its conjugate ``ph^H conj(P) ph``: one
     batched (F, M, M) x (F, M, D) complex matmul against the stored
     steering tensor, and no conjugated copy of it."""
+    if takes_quad_form_kernel(P.dtype, P.device, t.precision):
+        return quad_form_kernel.hermitian_quad_form(
+            P.contiguous(), t.phase_tiles, D=t.res_x * t.res_y)
     ph = _phase(t, P.dtype)
     return torch.linalg.vecdot(ph, torch.matmul(P.conj(), ph), dim=1).real
 

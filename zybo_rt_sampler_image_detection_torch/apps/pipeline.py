@@ -46,7 +46,7 @@ import torch.nn.functional as F_
 
 from ..config import Config
 from ..ingest.receiver import Receiver
-from ..ops import beamform, freq, quad_form_kernel
+from ..ops import beamform, freq, fused_kernel, quad_form_kernel
 from ..utils import audio as audio_mod
 from ..utils.metrics import PipelineMetrics, history
 from ..utils.profiling import annotate
@@ -155,11 +155,9 @@ def _select_power_backend(tables, channels: int = 0):
             k = _equiv_kernel_if_favored(tables, channels=channels)
             if k is not None:
                 return "equiv_kernel", k
-        from ..ops.fused_kernel import FusedBeamformer
-
         # a K-looped kernel fits every shape: no loud fallback to the
         # exact product as on the TPU (``fits_vmem``)
-        return "fused", FusedBeamformer(tables)
+        return "fused", fused_kernel.FusedBeamformer(tables)
     return "xla", None
 
 
@@ -178,7 +176,8 @@ def power_program(tables, n_full: int = 0, channels: int = 0,
     route's :func:`make_mvdr_stream`, which takes both forms as they
     come).  Else ``power_fn`` is a caller's program on whole f32 frames.
     A batched stage runs every other program behind :func:`_pad_full`,
-    which keeps a stateful program's ``reset``."""
+    which keeps a stateful program's ``reset`` and names the program it
+    wraps ``inner`` (:meth:`Pipeline.report` reads it)."""
     if backend == "mvdr":
         return power_fn
     sliced = 0 < channels < n_full
@@ -208,6 +207,7 @@ def power_program(tables, n_full: int = 0, channels: int = 0,
     def program(frames):
         return power_fn(_pad_full(frames, n_full))
 
+    program.inner = power_fn
     if hasattr(power_fn, "reset"):
         program.reset = power_fn.reset
     return program
@@ -1506,4 +1506,12 @@ class Pipeline:
         stream_counts = getattr(self._power_fn, "counts", None)
         if self._power_backend == "mvdr" and stream_counts is not None:
             rep["mvdr"] = dict(stream_counts)
+        # the time-domain route's kernel (the policy's fused kind, or a
+        # caller's FusedBeamformer), at the first stage that runs it
+        for s in self.stages:
+            fn = getattr(s, "power_fn", None)
+            fn = getattr(fn, "inner", fn)
+            if isinstance(fn, fused_kernel.FusedBeamformer):
+                rep["time_power"] = fn.report()
+                break
         return rep

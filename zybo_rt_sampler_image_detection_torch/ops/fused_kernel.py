@@ -81,7 +81,7 @@ def _round_up(x: int, m: int) -> int:
     return -(-x // m) * m
 
 
-def _window_plan(Wnp: np.ndarray, tile_d: int):
+def _window_plan(W, tile_d: int):
     """Per-(direction tile, mic) tap windows of the kernel.
 
     Within one direction tile each mic's nonzero taps span a narrow
@@ -91,23 +91,30 @@ def _window_plan(Wnp: np.ndarray, tile_d: int):
     and Tw to Mosaic's sublane multiple of 8 (``pallas_kernels.py:335-339``);
     the CUDA kernel takes any offset, so the port does not.
 
+    ``W``: the (D, T, M) taps, an array or a tensor, whose spans are
+    reduced on the tensor's device (the card's tables stay there: at
+    228x128 directions a pass over their 1.46 GB on the host costs
+    seconds of set-up).
     Returns ``(bases (n_tiles, M) int32, Tw)``; every window covers all
     nonzero taps of its (tile, mic) and lies in ``[0, T)``.  Where the
     spread is T, Tw = T and every base is 0: the dense contraction.
     """
-    D, T, M = Wnp.shape
+    W = torch.as_tensor(W)
+    D, T, M = W.shape
     DP = _round_up(D, tile_d)
-    nz = Wnp != 0
-    taps = np.arange(T)[None, :, None]
-    tmin = np.where(nz, taps, T).min(axis=1)           # (D, M)
-    tmax = np.where(nz, taps, -1).max(axis=1)
+    nz = W != 0
+    taps = torch.arange(T, device=W.device,
+                        dtype=torch.int16 if T < 2 ** 15 else torch.int32)
+    taps = taps[None, :, None]
+    tmin = torch.where(nz, taps, T).amin(dim=1)            # (D, M)
+    tmax = torch.where(nz, taps, -1).amax(dim=1)
     pad = DP - D
-    tmin = np.concatenate([tmin, np.full((pad, M), T)], 0)
-    tmax = np.concatenate([tmax, np.full((pad, M), -1)], 0)
-    tmin_t = tmin.reshape(DP // tile_d, tile_d, M).min(axis=1)
-    tmax_t = tmax.reshape(DP // tile_d, tile_d, M).max(axis=1)
-    Tw = max(int(np.maximum(tmax_t - tmin_t + 1, 0).max()), 1)
-    bases = np.clip(tmin_t, 0, T - Tw).astype(np.int32)
+    tmin = torch.cat([tmin, tmin.new_full((pad, M), T)])
+    tmax = torch.cat([tmax, tmax.new_full((pad, M), -1)])
+    tmin_t = tmin.reshape(DP // tile_d, tile_d, M).amin(dim=1)
+    tmax_t = tmax.reshape(DP // tile_d, tile_d, M).amax(dim=1)
+    Tw = max(int((tmax_t - tmin_t + 1).clamp(min=0).max()), 1)
+    bases = tmin_t.clamp(0, T - Tw).to(torch.int32).cpu().numpy()
     return bases, Tw
 
 
@@ -399,6 +406,16 @@ class FusedBeamformer:
     ``bf16`` for bf16 weights, else ``high`` or ``f32`` (the same FP32
     arithmetic).  The class holds the windowed weights, their bases and
     the sparse correction list (:attr:`table_bytes`).
+
+    Spans of a call: ``power.inputs`` (:meth:`kernel_inputs`: the
+    active rows' gather, cast and padding, the correction columns) and
+    ``power.kernel`` (the launch); a full-rate stage runs the class
+    behind ``pipeline._pad_full`` (``power.pad``), all three inside the
+    stage's ``power.program``.  :meth:`report` gives ``launches`` (the
+    :func:`fused_power` launches of this object's calls since it was
+    built, a Python int) and the plan: ``M`` rows a frame streams,
+    ``TK`` taps a window, ``DP`` padded directions and
+    :attr:`table_bytes`.
     """
 
     def __init__(self, t, tile_d: int = 8):
@@ -419,7 +436,7 @@ class FusedBeamformer:
         self.JM = len(t.corr_js) * M if self.Tc else 0
         self.tau_min = t.tau_min
         self.res_x, self.res_y = t.res_x, t.res_y
-        bases, self.TK = _window_plan(t.W.float().cpu().numpy(), tile_d)
+        bases, self.TK = _window_plan(t.W, tile_d)
         self.bases = torch.from_numpy(bases).to(self.device)
         self.Wp = _prep_weights(t.W, self.bases, self.TK, tile_d, self.DP,
                                 self.plane_dtype)
@@ -439,12 +456,18 @@ class FusedBeamformer:
         self.inv = float(np.float32(1.0 / (N * M * M)))
         self.kernel_kw = dict(tau_min=self.tau_min, tile_d=tile_d,
                               inv=self.inv, lpad=self.lpad, n_samples=N)
+        self.launches = 0
 
     @property
     def table_bytes(self) -> int:
         """Bytes of the tables the class holds on its device."""
         ts = [self.Wp, self.bases] + (list(self.wc) if self.wc else [])
         return sum(t.numel() * t.element_size() for t in ts)
+
+    def report(self) -> dict:
+        """The kernel's launches through this object and its plan."""
+        return {"launches": self.launches, "M": self.M, "TK": self.TK,
+                "DP": self.DP, "table_bytes": self.table_bytes}
 
     def launch_plan(self, B: int) -> Plan:
         """The :class:`Plan` :func:`fused_power` launches for ``B`` frames
@@ -480,5 +503,6 @@ class FusedBeamformer:
         with annotate("power.kernel"):
             power = fused_power(s, self.Wp, self.bases, sj, self.wc,
                                 **self.kernel_kw)
+            self.launches += s.is_cuda   # a CUDA call launched or raised
         power = power[:, :self.D].reshape(B, self.res_x, self.res_y)
         return power[0] if squeeze else power

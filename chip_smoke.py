@@ -1039,9 +1039,14 @@ def phase_policy():
     ref = beamform.steered_power(x, tables)
     same = all(peak(got[b]) == peak(ref[b]) for b in range(2))
     err = rel_err(got, ref)
+    # the report names the block split of the object's last launch
+    rep, p = obj.report(), obj.launch_plan(2)
+    split = {k: rep[k] for k in ("G", "NS", "MG", "stagings")}
     print(f"[policy] fused bf16 vs the plain product on bf16 tables: max "
-          f"rel err {err:.3e}, same peak {same}")
+          f"rel err {err:.3e}, same peak {same}; report's split {split}")
     assert same and err <= BF16_CLASS
+    assert split == {"G": p.G, "NS": p.NS, "MG": p.MG,
+                     "stagings": fk.stagings(p, obj.N, obj.DP)}, split
 
 
 class _PairRecorder:

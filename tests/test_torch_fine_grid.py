@@ -168,8 +168,9 @@ class _OnCardRows:
 @pytest.fixture
 def counted_k2(monkeypatch):
     """``fused_power`` taking its rows as the card's and counting its
-    calls as launches, on the CPU's plain version; ``counted.during``
-    runs inside the launch, as a second stage's thread may."""
+    calls as launches, on the CPU's plain version, on a card of
+    ``fused_kernel.SMS`` SMs; ``counted.during`` runs inside the launch,
+    as a second stage's thread may."""
     plain = fused_kernel.fused_power
     inputs = fused_kernel.FusedBeamformer.kernel_inputs
 
@@ -187,6 +188,9 @@ def counted_k2(monkeypatch):
     counted.launches, counted.during = 0, None
     monkeypatch.setattr(fused_kernel.FusedBeamformer, "kernel_inputs",
                         on_card)
+    monkeypatch.setattr(fused_kernel, "device_sms",
+                        lambda index: fused_kernel.SMS)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
     monkeypatch.setattr(fused_kernel, "fused_power", counted)
     return counted
 
@@ -227,8 +231,13 @@ def test_report_gives_the_time_domain_routes_launches_and_plan(
     p.run_stage(stage)
     p.stop()
     rep = p.report()["time_power"]
+    last = fused_kernel.plan(k2.N, k2.M, k2.TK, k2.DP, stage.batch, k2.NL,
+                             4, k2.JM, k2.Tc)
+    assert k2.last_plan == last
     assert rep == {"launches": 4, "M": k2.M, "TK": k2.TK, "DP": k2.DP,
-                   "table_bytes": k2.table_bytes}
+                   "table_bytes": k2.table_bytes, "G": last.G,
+                   "NS": last.NS, "MG": last.MG,
+                   "stagings": -(-(k2.DP // 8) // last.G)}
     assert counted_k2.launches == 4
     assert rep["M"] == p.tables.n_mics and rep["DP"] % 8 == 0
     assert rep["table_bytes"] == (k2.Wp.numel() * 4 + k2.bases.numel() * 4
@@ -293,3 +302,6 @@ def test_cpu_rows_count_no_launch():
     before = fused_kernel.fused_power.launches
     k2(frames)
     assert k2.launches == 0 == fused_kernel.fused_power.launches - before
+    assert k2.last_plan is None
+    assert {k: k2.report()[k] for k in ("G", "NS", "MG", "stagings")} == \
+        dict.fromkeys(("G", "NS", "MG", "stagings"))

@@ -73,6 +73,13 @@ SMEM_MAX = 232448               # dynamic shared memory one H100 block can opt i
 SM_SHARED = 233472              # shared memory of one SM ...
 BLOCK_RESERVED = 1024           # ... of which the runtime keeps 1 KB a block
 SMS = 132                       # SMs of an H100 SXM (the CPU plan's card)
+SCHEDULERS = 4                  # warp schedulers an SM, one warp's FMA a cycle
+# the card of the plan's model, each beside its measurement (the sweep of
+# scripts/profile_time_power.py on an H100 SXM, PERF.md section 7)
+FMA_PEAK = 67e12                # FP32 FLOP/s of the CUDA cores, 2 a FMA
+FMA_SHARE = 0.53                # of it K2's FMA loop reaches: cfgjson_fine G=8
+L2_RATE = 2.9e12                # bytes/s staged from L2: cfgjson_fine G=1
+ROUND_S = 0.52e-6               # a stage round's barrier: the sweep's MG pairs
 MGS = (16, 8, 4, 2, 1)          # mics a stage, largest first
 ROW_ALIGN = 8                   # elements a padded row rounds to (>= 16 B)
 
@@ -213,6 +220,64 @@ def block_plan(N: int, M: int, TK: int, DP: int, B: int, NL: int,
     return best
 
 
+def _passes(p: Plan, N: int) -> int:
+    """Passes of a block of ``p`` over its samples."""
+    return sample_cover(N, p.NS, p.NI) // (32 * p.NI * p.NS)
+
+
+def stagings(p: Plan, N: int, DP: int) -> int:
+    """Times the blocks of ``p`` stage one frame's rows: once a block of G
+    warp tiles (DP/(8G) of them), on each pass over its samples."""
+    return -(-(DP // DW) // p.G) * _passes(p, N)
+
+
+def staged_bytes(p: Plan, N: int, M: int, TK: int, DP: int, B: int,
+                 NL: int, itemsize: int) -> int:
+    """Bytes the blocks of ``p`` stage from L2 into shared memory for
+    ``B`` frames: at each staging of a frame all M padded rows, and on
+    each pass the M*TK weight rows of every direction."""
+    return B * M * (stagings(p, N, DP) * NL
+                    + _passes(p, N) * TK * DP) * itemsize
+
+
+class Times(NamedTuple):
+    """The card time of a launch by :func:`model_times`, in seconds."""
+
+    fma: float                  # FMA cycles of the busiest schedulers
+    stage: float                # the staged bytes at L2_RATE
+    rounds: float               # the SMs' stage rounds at ROUND_S
+
+    @property
+    def total(self) -> float:
+        """The FMAs and the staging overlap (the double buffer); the
+        barrier that ends each stage round overlaps neither."""
+        return max(self.fma, self.stage) + self.rounds
+
+
+def model_times(p: Plan, N: int, M: int, TK: int, DP: int, B: int,
+                NL: int, itemsize: int, sms: int = SMS) -> Times:
+    """The card time of the launch of ``p`` for ``B`` frames on ``sms``
+    SMs.  The blocks fall into waves of ``sms * p.bps``, the tail
+    included.  ``fma``: in each wave the busiest scheduler runs its
+    warps' FMAs, one a cycle at FMA_SHARE of the peak; a block takes its
+    warps' slots in an aligned run of G*NS rounded up to a power of two,
+    so blocks of 3, 5, 6 or 7 warps leave schedulers idle.  ``stage``:
+    :func:`staged_bytes` at L2_RATE.  ``rounds``: each wave's blocks start
+    together and run in step, so an SM waits at its blocks' barriers once
+    a stage, M/MG stages a pass."""
+    per_warp = sample_cover(N, p.NS, p.NI) // p.NS * M * TK * DW
+    per_sched = FMA_PEAK * FMA_SHARE / 2 / (SMS * SCHEDULERS)
+    run = 1 << (p.G * p.NS - 1).bit_length()
+    slots = sms * p.bps
+    waves = [p.bps] * (p.blocks // slots)
+    if p.blocks % slots:
+        waves.append(-(-(p.blocks % slots) // sms))
+    cycles = sum(-(-nb * run // SCHEDULERS) for nb in waves)
+    return Times(cycles * per_warp / per_sched,
+                 staged_bytes(p, N, M, TK, DP, B, NL, itemsize) / L2_RATE,
+                 len(waves) * _passes(p, N) * -(-M // p.MG) * ROUND_S)
+
+
 @functools.lru_cache(maxsize=256)
 def plan(N: int, M: int, TK: int, DP: int, B: int, NL: int, itemsize: int,
          JM: int = 0, Tc: int = 0, sms: int = SMS) -> Plan:
@@ -222,10 +287,10 @@ def plan(N: int, M: int, TK: int, DP: int, B: int, NL: int, itemsize: int,
     NS: the fewest sample splits that give every SM WARPS_PER_SM warps
     (B * DP/8 * NS of them), else the most; one frame needs them to fill
     the card, 16 frames do not.  G: the warp tiles a block whose launch
-    puts the fewest warps on the busiest SM, then the fewest waves, the
-    most SMs busy, the most resident warps an SM and the most tiles (a
-    frame is staged once a block).  MG: :func:`block_plan`'s.  Raises
-    ValueError when no block fits."""
+    :func:`model_times` times fastest (a frame is staged once a block),
+    ties to the fewest warps on the busiest SM, then the fewest waves,
+    the most SMs busy, the most resident warps an SM and the most tiles.
+    MG: :func:`block_plan`'s.  Raises ValueError when no block fits."""
     splits = sample_splits(N)
     NS = next((ns for ns in splits
                if B * (DP // DW) * ns >= sms * WARPS_PER_SM), max(splits))
@@ -238,7 +303,8 @@ def plan(N: int, M: int, TK: int, DP: int, B: int, NL: int, itemsize: int,
                          f"N={N} M={M}")
 
     def cost(p):
-        return (-(-p.blocks // sms) * p.G * p.NS,
+        return (model_times(p, N, M, TK, DP, B, NL, itemsize, sms).total,
+                -(-p.blocks // sms) * p.G * p.NS,
                 -(-p.blocks // (sms * p.bps)), -min(p.blocks, sms),
                 -p.bps * p.G * p.NS, -p.G)
 
@@ -415,7 +481,10 @@ class FusedBeamformer:
     :func:`fused_power` launches of this object's calls since it was
     built, a Python int) and the plan: ``M`` rows a frame streams,
     ``TK`` taps a window, ``DP`` padded directions and
-    :attr:`table_bytes`.
+    :attr:`table_bytes`; and the block split of its last CUDA launch
+    (:attr:`last_plan`; None before one): ``G`` warp tiles and ``NS``
+    sample splits a block, ``MG`` mics a stage and ``stagings``, the
+    times a frame's rows were staged (:func:`stagings`).
     """
 
     def __init__(self, t, tile_d: int = 8):
@@ -457,6 +526,7 @@ class FusedBeamformer:
         self.kernel_kw = dict(tau_min=self.tau_min, tile_d=tile_d,
                               inv=self.inv, lpad=self.lpad, n_samples=N)
         self.launches = 0
+        self.last_plan: Optional[Plan] = None
 
     @property
     def table_bytes(self) -> int:
@@ -466,8 +536,12 @@ class FusedBeamformer:
 
     def report(self) -> dict:
         """The kernel's launches through this object and its plan."""
+        p = self.last_plan
+        split = (dict.fromkeys(("G", "NS", "MG", "stagings")) if p is None
+                 else {"G": p.G, "NS": p.NS, "MG": p.MG,
+                       "stagings": stagings(p, self.N, self.DP)})
         return {"launches": self.launches, "M": self.M, "TK": self.TK,
-                "DP": self.DP, "table_bytes": self.table_bytes}
+                "DP": self.DP, "table_bytes": self.table_bytes, **split}
 
     def launch_plan(self, B: int) -> Plan:
         """The :class:`Plan` :func:`fused_power` launches for ``B`` frames
@@ -503,6 +577,8 @@ class FusedBeamformer:
         with annotate("power.kernel"):
             power = fused_power(s, self.Wp, self.bases, sj, self.wc,
                                 **self.kernel_kw)
-            self.launches += s.is_cuda   # a CUDA call launched or raised
+            if s.is_cuda:                # the plan fused_power launched
+                self.launches += 1
+                self.last_plan = self.launch_plan(B)
         power = power[:, :self.D].reshape(B, self.res_x, self.res_y)
         return power[0] if squeeze else power

@@ -2675,45 +2675,37 @@ def phase_train_parity(card: str) -> dict:
 
 
 def _trace_split(logdir: str) -> dict:
-    """Device time by ``annotate`` range and by kernel from the Chrome
-    trace ``utils.profiling.trace`` wrote: a kernel belongs to the range
-    whose host interval holds its launch (matched by correlation id)."""
+    """Device time by ``annotate`` span from ``profiling.report()`` (the
+    kernels each ``train/*`` span launched while it was the innermost
+    one, attributed when the session ended) and by kernel from the
+    Chrome trace ``utils.profiling.trace`` wrote."""
     import glob
 
+    from zybo_rt_sampler_image_detection_torch.utils import profiling
+
+    rep, ses = profiling.report(), profiling.session()
+    assert "error" not in ses, ses["error"]
+    assert ses["device_s"] > 0, f"no device time attributed: {ses}"
+    by_range = {n: 1e6 * rep.get(n, {}).get("device_self_s", 0.0)
+                for n in TRAIN_RANGES}
+    busy = 1e6 * ses["device_s"]
     path = max(glob.glob(os.path.join(logdir, "trace_*.json")),
                key=os.path.getmtime)
     with open(path) as f:
         events = json.load(f)["traceEvents"]
-    ranges = [(e["ts"], e["ts"] + e["dur"], e["name"]) for e in events
-              if e.get("cat") == "user_annotation"
+    starts = [e["ts"] for e in events if e.get("cat") == "user_annotation"
               and e.get("name") in TRAIN_RANGES]
-    launch_at = {e["args"]["correlation"]: e["ts"] for e in events
-                 if e.get("cat") in ("cuda_runtime", "cuda_driver")
-                 and "correlation" in e.get("args", {})}
     kernels = [e for e in events if e.get("cat") == "kernel"]
-    by_range = dict.fromkeys(TRAIN_RANGES, 0.0)
     by_name: dict = {}
-    other = 0.0
     for k in kernels:
-        dur = float(k["dur"])
-        t = launch_at.get(k.get("args", {}).get("correlation"))
-        owner = next((n for a, b, n in ranges
-                      if t is not None and a <= t <= b), None)
-        if owner is None:
-            other += dur
-        else:
-            by_range[owner] += dur
         n, c = by_name.get(k["name"], (0.0, 0))
-        by_name[k["name"]] = (n + dur, c + 1)
+        by_name[k["name"]] = (n + float(k["dur"]), c + 1)
     span = 0.0
-    if kernels and ranges:
-        start = min(a for a, _, _ in ranges)
-        end = max(k["ts"] + k["dur"] for k in kernels)
-        span = end - start
-    busy = sum(by_range.values()) + other
+    if kernels and starts:
+        span = max(k["ts"] + k["dur"] for k in kernels) - min(starts)
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
-    return dict(by_range_us=by_range, other_us=other, busy_us=busy,
-                span_us=span, n_kernels=len(kernels), top=top)
+    return dict(by_range_us=by_range, other_us=busy - sum(by_range.values()),
+                busy_us=busy, span_us=span, n_kernels=len(kernels), top=top)
 
 
 def _train_bound(cfg, B: int, model) -> dict:

@@ -960,6 +960,49 @@ def test_spans_off_under_a_cuda_only_profile(cuda):
     assert set(rep) == {"cpu.too"} and rep["cpu.too"]["n"] == 1
 
 
+def test_spans_carry_the_device_time_they_launch(cuda):
+    """A tiny full-rate stage on the card under a profile of CPU and CUDA
+    activity that records the starting thread's ranges alone (as the
+    benchmark's ``DeviceTrace`` opens it): the stage thread's
+    ``power.kernel`` launched device time, and the spans' attributed
+    device time covers the session's kernels and memsets."""
+    import time
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from zybo_rt_sampler_image_detection_torch.utils import profiling
+
+    cfg = Config.tiny().replace(matmul_precision="high")
+    p = pipeline.Pipeline(cfg, "lerp", backend="python", device="cuda")
+    frames = _frames(cfg, 64, seed=5)
+    for f in frames:
+        p.receiver.buffer.publish(f)
+    firsts = []
+    stage = p.make_heatmap_batched(
+        batch=4, sink=lambda powers, first: firsts.append(first))
+    stage.warmup()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        assert not profiling._every
+        p.run_stage(stage)
+        deadline = time.monotonic() + 60
+        while len(firsts) < 16 and time.monotonic() < deadline:
+            time.sleep(0.02)
+        p.stop()
+        torch.cuda.synchronize()
+    assert len(firsts) == 16
+    rep, ses = profiling.report(), profiling.session()
+    assert rep["power.kernel"]["device_self_s"] > 0
+    assert rep["stage.batch"]["device_s"] >= rep["power.kernel"]["device_s"]
+    spans = sum(v["device_self_s"] for v in rep.values())
+    assert ses["device_s"] > 0 and spans >= 0.99 * ses["device_s"], (
+        spans, ses)
+    assert ses["launch_tid"] == stage.native_id
+    assert sum(v["idle_s"] for v in rep.values()) + ses["idle_outside_s"] \
+        == pytest.approx(ses["idle_s"], rel=1e-9, abs=1e-9)
+    assert rep["stage.h2d"]["copy_s"] > 0
+
+
 def test_invert_hermitian_on_the_card_solves_the_factor(cuda):
     """On the card the refresh's inverse is a triangular solve against
     the identity and one product (``freq._inverse_from_factor``): at the

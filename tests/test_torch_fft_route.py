@@ -260,7 +260,9 @@ def test_the_webfft_entries():
     assert names == ["card_heatmaps_per_s", "setup_s"]
     assert {m["name"] for m in harness.per_layer_of(spec, cell["name"])} \
         == {"fft_roofline", "fft_spectra_ms_per_batch.replay",
-            "fft_contract_ms_per_batch.replay"}
+            "fft_contract_ms_per_batch.replay",
+            "power_prep_device_ms_per_batch.replay",
+            "power_kernel_device_ms_per_batch.replay"}
     assert reference.maps(Config.fft_reference(), "cpu",
                           np.zeros((0, 256, 256), np.float32)).shape == \
         (0, 13, 13)

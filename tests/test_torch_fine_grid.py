@@ -75,13 +75,16 @@ def test_fine_configuration_is_cfgjson_at_a_4x_grid():
     cell = harness.find_cell(spec, "cfgjson_fine.replay")
     assert (cell["config"], cell["traffic"], cell["chips"]) == (
         "cfgjson_fine", "replay", 1)
-    # the replay cells' roofline, stage rate, stage CPU and idle share;
-    # none of the fft or mvdr routes'
+    # the replay cells' roofline, stage rate, stage CPU and idle share,
+    # and the power program's device time by span; none of the fft or
+    # mvdr routes'
     names = [m["name"] for m in harness.per_layer_of(spec,
                                                      "cfgjson_fine.replay")]
     assert names == ["power_roofline", "stage_heatmaps_per_s.replay",
                      "stage_cpu_ms_per_batch.replay",
-                     "device_idle_share.replay"]
+                     "device_idle_share.replay",
+                     "power_prep_device_ms_per_batch.replay",
+                     "power_kernel_device_ms_per_batch.replay"]
 
 
 def test_fine_control_builds_bf16_tables():

@@ -380,7 +380,10 @@ def test_the_cfgjson_mvdr_entries():
     names = [m["name"] for m in harness.end_to_end_of(SPEC, cell["name"])]
     assert names == ["card_heatmaps_per_s", "setup_s"]
     assert {m["name"] for m in harness.per_layer_of(SPEC, cell["name"])} \
-        == {"mvdr_roofline", "mvdr_host_ms_per_batch.stream"}
+        == {"mvdr_roofline", "mvdr_host_ms_per_batch.stream",
+            "mvdr_scan_device_ms_per_batch.stream",
+            "mvdr_d0_device_ms_per_batch.stream",
+            "mvdr_refresh_device_ms_per_batch.stream"}
     assert CONFIG["algorithm"] == "mvdr" and CONFIG["reduced"] == []
     # the keys of cfgjson, the estimator's block and the numbers it sets
     with open(os.path.join(ROOT, "portbench", "configs",
